@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the repository root with no arguments:  python3 chip_smoke.py
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+3. holds each kernel against its plain PyTorch twin on the same CUDA
+   tensors at the main path's shapes (exact equality: the codec is
+   integer-only);
+4. drives the main path, ``CUDACompressor(blocks_per_segment=16)`` over
+   a 16 MiB mixed corpus, checks it round-trips through zlib, and checks
+   that every kernel was launched there; then a preset-dictionary case,
+   a halo case, and the card against the plain route on a small input;
+5. times each kernel, its twin and the end-to-end encode, and prints a
+   JSON line of kernels and, last, the device line.
+
+Every phase raises on failure.  Without a CUDA device it exits non-zero
+before printing any result.  Imports nothing of JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import zlib
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet, fp32)
+
+
+def make_corpus(total=16 * (1 << 20), seed=0):
+    """Synthetic Silesia stand-in: mixed text / binary records /
+    repetitive / random sections (same generator as bench.py)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    words = [b"the", b"quick", b"compression", b"deflate", b"window",
+             b"huffman", b"block", b"stream", b"symbol", b"match",
+             b"of", b"and", b"entropy", b"parallel", b"kernel"]
+    while sum(map(len, parts)) < total:
+        kind = rng.integers(0, 4)
+        if kind == 0:
+            n_words = int(rng.integers(2000, 8000))
+            idx = rng.integers(0, len(words), n_words)
+            parts.append(b" ".join(words[i] for i in idx))
+        elif kind == 1:
+            rec = rng.integers(0, 256, 64, np.uint8).tobytes()
+            reps = int(rng.integers(200, 1200))
+            noise = rng.integers(0, 256, 64, np.uint8)
+            parts.append(b"".join(
+                rec[:48] + noise.tobytes()[:16] for _ in range(reps)))
+        elif kind == 2:
+            unit = rng.integers(0, 256, int(rng.integers(3, 200)), np.uint8).tobytes()
+            parts.append(unit * int(rng.integers(500, 3000)))
+        else:
+            parts.append(rng.integers(0, 256, int(rng.integers(30000, 150000)),
+                                      np.uint8).tobytes())
+    return b"".join(parts)[:total]
+
+
+def cuda_ms(fn, reps):
+    """Mean ms per call between CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want):
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def profile_main_path(comp, corpus):
+    """Where the time of one main-path encode goes: wall time, summed
+    device time of its kernels, the device's idle share, and the
+    kernels and operators that take most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        comp.compress(corpus)
+        wall_ms = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print(f"profile: wall {wall_ms:.1f} ms, device time not measured")
+        return
+    print(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    from moonbit_flate_tpu_torch.api.cuda import CUDACompressor, stage_segment
+    from moonbit_flate_tpu_torch.kernels import build
+    from moonbit_flate_tpu_torch.ops import pack, pipeline, walk
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    build.build_all()
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+
+    nb = 16
+    S = nb * pipeline.BLOCK
+    corpus = make_corpus()
+    n_full = len(corpus) // S
+
+    # ---- kernel phase: each kernel against its twin on the card ----------
+    t0 = time.time()
+    staged = [stage_segment(b"", corpus[i * S:(i + 1) * S], nb)
+              for i in range(n_full)]
+    staged.append(stage_segment(corpus[:32768], corpus[32768:S], nb))
+    data = torch.from_numpy(np.stack([s[0] for s in staged])).to(dev)
+    ns = [s[1] for s in staged]
+    ctxs = [s[2] for s in staged]
+    clipped = [pipeline._find_clip(data[b], ns[b], ctxs[b], nb)
+               for b in range(len(staged))]
+    mlen = torch.stack([m for m, _ in clipped])
+    dist = torch.stack([d for _, d in clipped])
+    walk_args = (data, mlen, dist, ns, ctxs, nb)
+    got = walk.commit_walk(*walk_args)
+    want = walk.commit_walk_ref(*walk_args)
+    walk_err = max_abs_err(got, want)
+    if walk_err:
+        raise AssertionError(f"walk kernel differs from its twin: {walk_err}")
+    committed, is_match, mlen2, dist2 = got
+    matches = int(is_match.sum())
+    matched_bytes = int(mlen2.long().sum())
+    print(f"walk: {len(staged)} segments equal to the twin "
+          f"({matches} matches, {matched_bytes} matched bytes)", flush=True)
+
+    vals, wids = pipeline._tokens_to_units(
+        data[0], ns[0], ctxs[0], committed[0], is_match[0], mlen2[0],
+        dist2[0], nb)
+    n_words = pipeline.n_words_for(nb)
+    rng = np.random.default_rng(1)
+    rw = rng.integers(0, 29, vals.numel()).astype(np.int32)
+    rw[rng.random(vals.numel()) < 0.7] = 0
+    rv = rng.integers(0, 1 << 28, vals.numel()).astype(np.int32)
+    pack_cases = [(vals, wids),
+                  (torch.from_numpy(rv).to(dev), torch.from_numpy(rw).to(dev))]
+    pack_err = 0
+    for v, w in pack_cases:
+        pack_err = max(pack_err, max_abs_err(
+            pack.pack_units_dense(v, w, n_words),
+            pack.pack_units_ref(v, w, n_words)))
+    if pack_err:
+        raise AssertionError(f"pack kernel differs from its twin: {pack_err}")
+    print(f"pack: {len(pack_cases)} unit sets of {vals.numel()} equal to the twin; "
+          f"kernel phase {time.time() - t0:.1f} s", flush=True)
+
+    # ---- main path: counts from 0, one compress, counts read after ---------
+    walk.launches = 0
+    pack.launches = 0
+    comp = CUDACompressor(blocks_per_segment=nb)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = comp.compress(corpus)
+    first_s = time.time() - t0
+    launches = {"walk": walk.launches, "pack": pack.launches}
+    if zlib.decompress(out, wbits=-15) != corpus:
+        raise AssertionError("main path output does not round-trip")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"main path never launched the {name} kernel")
+    print(f"main path: {len(corpus)} -> {len(out)} bytes (ratio "
+          f"{len(out) / len(corpus):.4f}) in {first_s:.2f} s, launches {launches}",
+          flush=True)
+
+    small = corpus[:3 * S // 8]
+    dct = corpus[5 * S: 5 * S + 32768]
+    c_dict = comp.compress(small, dictionary=dct)
+    dec = zlib.decompressobj(-15, zdict=dct)
+    if dec.decompress(c_dict) + dec.flush() != small:
+        raise AssertionError("dictionary case does not round-trip")
+    halo_comp = CUDACompressor(blocks_per_segment=1, halo=True)
+    c_halo = halo_comp.compress(small)
+    if zlib.decompress(c_halo, wbits=-15) != small:
+        raise AssertionError("halo case does not round-trip")
+    tiny = corpus[7 * S: 7 * S + 200_000]
+    for kw in ({}, {"halo": True}):
+        on_card = CUDACompressor(4, device="cuda", **kw).compress(tiny)
+        plain = CUDACompressor(4, device="cpu", **kw).compress(tiny)
+        if on_card != plain:
+            raise AssertionError(f"card and plain route differ ({kw})")
+    print("dictionary, halo and card-vs-plain checks passed", flush=True)
+
+    # ---- timing -------------------------------------------------------------
+    t0 = time.time()
+    out2 = comp.compress(corpus)
+    enc_s = time.time() - t0
+    if out2 != out:
+        raise AssertionError("second encode differs from the first")
+    mbps = len(corpus) / enc_s / 1e6
+    print(f"encode: {enc_s:.3f} s for {len(corpus)} bytes = {mbps:.2f} MB/s",
+          flush=True)
+
+    profile_main_path(comp, corpus)
+
+    B = data.shape[0]
+    S_pad = -(-S // 32) * 32
+    walk_ms = cuda_ms(lambda: walk.commit_walk(*walk_args), 3)
+    walk_plain_ms = cuda_ms(lambda: walk.commit_walk_ref(*walk_args), 1)
+    # bytes: staged data, minfo and bitmask in, minfo out; operations:
+    # a few per bitmask word scanned and per committed match, two per
+    # byte compared in extension (integer work on the CUDA cores)
+    walk_bytes = B * (S + 320) + B * S_pad * 4 + B * S_pad // 8 + B * S_pad * 4
+    walk_ops = 4 * B * S_pad // 32 + 40 * matches + 2 * matched_bytes
+    pv, pw = pack_cases[0]
+    pack_ms = cuda_ms(lambda: pack.pack_units_dense(pv, pw, n_words), 20)
+    pack_plain_ms = cuda_ms(lambda: pack.pack_units_ref(pv, pw, n_words), 5)
+    pack_bytes = pv.numel() * 8 + n_words * 4
+    pack_ops = 12 * pv.numel()
+
+    def bound(nbytes, ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / CORE_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    kernels = []
+    for name, src, replaces, err, ms, plain_ms, nbytes, ops in (
+            ("walk", "moonbit_flate_tpu_torch/csrc/walk.cu",
+             "moonbit_flate_tpu/ops/walk_pallas.py:320", walk_err, walk_ms,
+             walk_plain_ms, walk_bytes, walk_ops),
+            ("pack", "moonbit_flate_tpu_torch/csrc/pack.cu",
+             "moonbit_flate_tpu/ops/pack.py:255", pack_err, pack_ms,
+             pack_plain_ms, pack_bytes, pack_ops)):
+        bound_ms, bound_by = bound(nbytes, ops)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

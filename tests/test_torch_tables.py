@@ -1,0 +1,122 @@
+"""Port parity: constants, code tables and dense helpers of
+moonbit_flate_tpu_torch against the JAX package (exact, integer-only)."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moonbit_flate_tpu.formats import constants as JC
+from moonbit_flate_tpu.ops import dense as JD
+from moonbit_flate_tpu.ops import tables as JT
+from moonbit_flate_tpu_torch.formats import constants as TC
+from moonbit_flate_tpu_torch.ops import dense as TD
+from moonbit_flate_tpu_torch.ops import tables as TT
+
+# one intra-op thread: the suite runs several worker processes at once,
+# and PyTorch's spinning CPU threads would contend with each other
+torch.set_num_threads(1)
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CONSTANTS = [
+    "WINDOW_SIZE", "MAX_MATCH_OFFSET", "BASE_MATCH_LENGTH",
+    "MAX_MATCH_LENGTH", "MIN_MATCH_LENGTH", "MAX_STORE_BLOCK_SIZE",
+    "MAX_NUM_LIT", "MAX_NUM_DIST", "NUM_CODES", "END_BLOCK_MARKER",
+    "LIT_LEN_MAX_BITS", "CODEGEN_MAX_BITS", "CODEGEN_ORDER", "LENGTH_BASE",
+    "LENGTH_EXTRA_BITS", "LENGTH_CODES", "OFFSET_BASE", "OFFSET_EXTRA_BITS",
+    "OFFSET_CODES",
+]
+
+
+@pytest.mark.parametrize("name", _CONSTANTS)
+def test_constant_tables_equal_jax_package(name):
+    want = np.asarray(getattr(JC, name))
+    got = np.asarray(getattr(TC, name))
+    assert got.dtype == want.dtype
+    assert np.array_equal(got, want)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_length_code_all_xlen():
+    x = np.arange(256, dtype=np.int32)
+    assert np.array_equal(TT.length_code(_t(x)).numpy(),
+                          np.asarray(JT.length_code(jnp.asarray(x))))
+
+
+def test_offset_code_all_xoff():
+    x = np.arange(32768, dtype=np.int32)
+    assert np.array_equal(TT.offset_code(_t(x)).numpy(),
+                          np.asarray(JT.offset_code(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("fn,n_codes", [("length_base_extra", 29),
+                                        ("offset_base_extra", 30)])
+def test_base_extra_all_codes(fn, n_codes):
+    c = np.arange(n_codes, dtype=np.int32)
+    for got, want in zip(getattr(TT, fn)(_t(c)), getattr(JT, fn)(jnp.asarray(c))):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_take1d_and_take_rows_match_jax():
+    rng = np.random.default_rng(0)
+    table = rng.integers(-1000, 1000, 40).astype(np.int32)
+    idx = rng.integers(-3, 44, (5, 17)).astype(np.int32)   # some out of range
+    assert np.array_equal(TD.take1d(_t(table), _t(idx)).numpy(),
+                          np.asarray(JD.take1d(jnp.asarray(table), jnp.asarray(idx))))
+    rows = rng.integers(-1000, 1000, (5, 40)).astype(np.int32)
+    assert np.array_equal(
+        TD.take_rows(_t(rows), _t(idx)).numpy(),
+        np.asarray(JD.take_rows(jnp.asarray(rows), jnp.asarray(idx))))
+
+
+def test_hist_rows_matches_jax():
+    rng = np.random.default_rng(1)
+    idx = rng.integers(-2, 33, (4, 3000)).astype(np.int32)   # some dropped
+    assert np.array_equal(TD.hist_rows(_t(idx), 30).numpy(),
+                          np.asarray(JD.hist_rows(jnp.asarray(idx), 30)))
+
+
+def test_sort_carry_is_stable_like_jax():
+    rng = np.random.default_rng(2)
+    keys = rng.integers(0, 6, (3, 500)).astype(np.int32)     # many ties
+    pay = rng.integers(0, 1 << 30, (3, 500)).astype(np.int32)
+    got = TD.sort_carry(_t(keys), _t(pay))
+    want = JD.sort_carry(jnp.asarray(keys), jnp.asarray(pay))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, moonbit_flate_tpu_torch\n"
+        "import moonbit_flate_tpu_torch.ops.pipeline, "
+        "moonbit_flate_tpu_torch.api.cuda, moonbit_flate_tpu_torch.kernels.build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert not any(m == 'triton' or m.startswith('triton.') for m in sys.modules)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
+    from moonbit_flate_tpu_torch import compress
+    from moonbit_flate_tpu_torch.api.cuda import CUDACompressor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CUDACompressor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compress(b"abc")
+    assert CUDACompressor(device="cpu").device.type == "cpu"
