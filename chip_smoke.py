@@ -5,15 +5,21 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
-3. holds each kernel against its plain PyTorch twin on the same CUDA
-   tensors at the main path's shapes (exact equality: the codec is
-   integer-only);
-4. drives the main path, ``CUDACompressor(blocks_per_segment=16)`` over
-   a 16 MiB mixed corpus, checks it round-trips through zlib, and checks
-   that every kernel was launched there; then a preset-dictionary case,
-   a halo case, and the card against the plain route on a small input;
-5. times each kernel, its twin and the end-to-end encode, and prints a
-   JSON line of kernels and, last, the device line.
+3. encode: holds the walk and pack kernels against their plain PyTorch
+   twins on the same CUDA tensors at the main path's shapes (exact
+   equality: the codec is integer-only); drives the encode main path,
+   ``CUDACompressor(blocks_per_segment=16)`` over a 16 MiB mixed corpus,
+   checks it round-trips through zlib and that both kernels were
+   launched there; then a preset-dictionary case, a halo case, and the
+   card against the plain route on a small input; times it all;
+4. decode: runs kernel A (``lanes_parse``) and kernel BC
+   (``lanes_resolve``) at the main path's 32 waves, the last wave
+   holding corrupt, truncated and overflowing streams, and holds the
+   first and last waves against their twins; drives the decode main
+   path, ``decompress_shards`` over 32 x 1024 zlib level-1 shards of
+   4096 bytes (128 MiB decoded), checks the bytes against the corpus
+   and that both kernels were launched there; times it all;
+5. prints a JSON line of all kernels and, last, the device line.
 
 Every phase raises on failure.  Without a CUDA device it exits non-zero
 before printing any result.  Imports nothing of JAX.
@@ -30,6 +36,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet, fp32)
+DEC_WAVES = 32              # decode main path: 32 x 1024 shards of 4096 bytes
 
 
 def make_corpus(total=16 * (1 << 20), seed=0):
@@ -61,9 +68,11 @@ def make_corpus(total=16 * (1 << 20), seed=0):
     return b"".join(parts)[:total]
 
 
-def cuda_ms(fn, reps):
-    """Mean ms per call between CUDA events, after one warm-up call."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean ms per call between CUDA events, after one warm-up call
+    unless warm is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -84,24 +93,30 @@ def max_abs_err(got, want):
     return err
 
 
-def profile_main_path(comp, corpus):
-    """Where the time of one main-path encode goes: wall time, summed
+def profile_main_path(label, fn):
+    """Where the time of one main-path call goes: wall time, summed
     device time of its kernels, the device's idle share, and the
     kernels and operators that take most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    # a first profiled call warms the tracer up: without it the events of
+    # the first part of the call can go missing
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        comp.compress(corpus)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        print(f"profile: wall {wall_ms:.1f} ms, device time not measured")
+        print(f"profile {label}: wall {wall_ms:.1f} ms, device time not measured")
         return
-    print(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
@@ -112,23 +127,24 @@ def profile_main_path(comp, corpus):
               f"{e.key[:90]}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+def bound(nbytes, ops):
+    """Least time (ms) for the work, and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
+
+def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops):
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def encode_phase(dev):
     from moonbit_flate_tpu_torch.api.cuda import CUDACompressor, stage_segment
-    from moonbit_flate_tpu_torch.kernels import build
     from moonbit_flate_tpu_torch.ops import pack, pipeline, walk
-
-    dev = torch.device("cuda")
-    t0 = time.time()
-    build.build_all()
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
 
     nb = 16
     S = nb * pipeline.BLOCK
@@ -225,7 +241,7 @@ def main():
     print(f"encode: {enc_s:.3f} s for {len(corpus)} bytes = {mbps:.2f} MB/s",
           flush=True)
 
-    profile_main_path(comp, corpus)
+    profile_main_path("encode", lambda: comp.compress(corpus))
 
     B = data.shape[0]
     S_pad = -(-S // 32) * 32
@@ -242,25 +258,185 @@ def main():
     pack_bytes = pv.numel() * 8 + n_words * 4
     pack_ops = 12 * pv.numel()
 
-    def bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CORE_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return [
+        kernel_entry("walk", "moonbit_flate_tpu_torch/csrc/walk.cu",
+                     "moonbit_flate_tpu/ops/walk_pallas.py:320", launches["walk"],
+                     walk_err, walk_ms, walk_plain_ms, walk_bytes, walk_ops),
+        kernel_entry("pack", "moonbit_flate_tpu_torch/csrc/pack.cu",
+                     "moonbit_flate_tpu/ops/pack.py:255", launches["pack"],
+                     pack_err, pack_ms, pack_plain_ms, pack_bytes, pack_ops)]
 
-    kernels = []
-    for name, src, replaces, err, ms, plain_ms, nbytes, ops in (
-            ("walk", "moonbit_flate_tpu_torch/csrc/walk.cu",
-             "moonbit_flate_tpu/ops/walk_pallas.py:320", walk_err, walk_ms,
-             walk_plain_ms, walk_bytes, walk_ops),
-            ("pack", "moonbit_flate_tpu_torch/csrc/pack.cu",
-             "moonbit_flate_tpu/ops/pack.py:255", pack_err, pack_ms,
-             pack_plain_ms, pack_bytes, pack_ops)):
-        bound_ms, bound_by = bound(nbytes, ops)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+
+def decode_phase(dev):
+    from moonbit_flate_tpu_torch import decompress_shards
+    from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
+    from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
+    from moonbit_flate_tpu_torch.utils.lane_cases import lane_cases, rule_cases
+
+    t0 = time.time()
+    waves = DEC_WAVES
+    n_sh = waves * LI.NSTR
+    corpus = make_corpus(total=n_sh * LI.SEGB, seed=0)
+    shards = [corpus[i * LI.SEGB:(i + 1) * LI.SEGB] for i in range(n_sh)]
+    zstreams = [zlib.compress(s, 1)[2:-4] for s in shards]
+    print(f"decode corpus: {n_sh} shards, {len(corpus)} bytes -> "
+          f"{sum(map(len, zstreams))} compressed, made in {time.time() - t0:.1f} s",
+          flush=True)
+
+    def relayout(tok):
+        return tok.permute(0, 1, 3, 4, 2).reshape(
+            tok.shape[0], LI.TOK_CHUNKS, LI.NSTR, LI.LANE).contiguous()
+
+    # ---- kernels against their twins at the main path's shape -----------
+    # 32 waves of corpus shards, except that the last wave opens with the
+    # lane-test cases and the error-rule streams.  Each kernel runs once
+    # on all 32 waves; its twin runs on the first wave and the last (one
+    # two-wave call, as the twins cost per step, not per stream), and
+    # tok, misc rows 0-2 and out must agree exactly.
+    t0 = time.time()
+    cases = lane_cases() + rule_cases()
+    last = n_sh - LI.NSTR
+    check = zstreams[:last] + cases + zstreams[last + len(cases):]
+    nbc, inwc = LI.stage_streams_lanes(check, waves)
+    tok, misc = LI.parse_waves(nbc, inwc, waves)
+    sel = [0, waves - 1]
+    tok_r, misc_r = LI.parse_waves_ref(nbc[sel].contiguous(), inwc[sel].contiguous(), 2)
+    parse_err = max_abs_err((tok[sel], misc[sel, :3]), (tok_r, misc_r[:, :3]))
+    if parse_err:
+        raise AssertionError(f"lanes_parse kernel differs from its twin: {parse_err}")
+    st = misc[waves - 1, 0].reshape(-1).cpu().numpy()
+    kinds = {int(k): int(c) for k, c in zip(*np.unique(st, return_counts=True))}
+    for want in (LI.ST_DONE, LI.ST_CORRUPT, LI.ST_TRUNC, LI.ST_OVERFLOW):
+        if want not in kinds:
+            raise AssertionError(f"check wave never reached status {want}: {kinds}")
+    tok_lmc = relayout(tok)
+    outlenc = misc[:, 1].contiguous()
+    outc = LR.resolve_waves(outlenc, tok_lmc, waves)
+    resolve_err = max_abs_err(
+        (outc[sel],), (LR.resolve_waves_ref(outlenc[sel], tok_lmc[sel], 2),))
+    if resolve_err:
+        raise AssertionError(f"lanes_resolve kernel differs from its twin: {resolve_err}")
+    print(f"lanes_parse, lanes_resolve: {waves} waves in one launch each; waves "
+          f"{sel} equal to the twins (statuses of the last wave {kinds}) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del check, nbc, inwc, tok, misc, tok_r, misc_r, tok_lmc, outlenc, outc
+
+    # ---- main path: counts from 0, one decode, counts read after ------------
+    sizes = [LI.SEGB] * n_sh
+    LI.launches = 0
+    LR.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dec = decompress_shards(zstreams, sizes)
+    first_s = time.time() - t0
+    launches = {"lanes_parse": LI.launches, "lanes_resolve": LR.launches}
+    if b"".join(dec) != corpus:
+        raise AssertionError("decode main path does not give the corpus back")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"decode main path never launched the {name} kernel")
+    print(f"decode main path: {n_sh} shards -> {len(corpus)} bytes, all DONE, in "
+          f"{first_s:.3f} s, launches {launches}", flush=True)
+
+    # ---- timing -------------------------------------------------------------
+    t0 = time.time()
+    dec2 = decompress_shards(zstreams, sizes)
+    dec_s = time.time() - t0
+    if dec2 != dec:
+        raise AssertionError("second decode differs from the first")
+    print(f"decode: {dec_s:.3f} s for {len(corpus)} bytes = "
+          f"{len(corpus) / dec_s / 1e6:.2f} MB/s", flush=True)
+    profile_main_path("decode", lambda: decompress_shards(zstreams, sizes))
+
+    # one decode in parts: staging (host, then the copy to the card), the
+    # kernels with the token relayout, the status readback, and the bytes
+    # (gather, copy to the host, split into bytes objects)
+    del dec2
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    mark()
+    nb, inw = LI.stage_streams_lanes(zstreams, waves)
+    mark()
+    out, misc = LR.inflate_waves(nb, inw, waves)
+    mark()
+    n = misc[:, 1].reshape(-1).cpu().numpy()
+    mark()
+    if LR.shard_bytes(out, n) != dec:
+        raise AssertionError("decode in parts differs from decompress_shards")
+    mark()
+    parts = np.diff(marks) * 1e3
+    print("decode breakdown: staging {:.1f} ms, inflate_waves {:.1f} ms, status "
+          "readback {:.1f} ms, bytes to the host {:.1f} ms; total {:.1f} ms".format(
+              *parts, parts.sum()), flush=True)
+
+    tok, misc = LI.parse_waves(nb, inw, waves)
+    if not bool((misc[:, 0] == LI.ST_DONE).all()):
+        raise AssertionError("decode statuses are not all DONE")
+    tok_lm = relayout(tok)
+    outlen = misc[:, 1].contiguous()
+    out = LR.resolve_waves(outlen, tok_lm, waves)
+    parse_ms = cuda_ms(lambda: LI.parse_waves(nb, inw, waves), 3)
+    resolve_ms = cuda_ms(lambda: LR.resolve_waves(outlen, tok_lm, waves), 5)
+    parse_plain_ms = cuda_ms(lambda: LI.parse_waves_ref(nb[:1], inw[:1], 1), 1, warm=False)
+    resolve_plain_ms = cuda_ms(
+        lambda: LR.resolve_waves_ref(outlen[:1], tok_lm[:1], 1), 1, warm=False)
+    # bytes this run's data needs, each read or written once.  Kernel A
+    # reads nbits and each stream's words up to its last bit, and writes
+    # every token row and misc.  Kernel BC reads outlen and each stream's
+    # token rows, 32 at a time, up to the one that completes its output,
+    # and writes every output word.  Operations: kernel A up to 64 a
+    # symbol (15 length-counting rounds), a symbol per literal and two
+    # per match; BC 4 a byte and 8 a record.
+    n_lit = int((tok > 0).sum())
+    n_match = int((tok < 0).sum())
+    in_words = int(((nb.long() + 31) // 32).sum())
+    row1 = torch.arange(1, LI.TOK_ROWS + 1, dtype=torch.int32, device=tok.device)
+    last_row = ((tok.reshape(waves, LI.TOK_ROWS, LI.NSTR) != 0)
+                * row1[None, :, None]).amax(1).long()
+    rows_read = int(torch.where(outlen.reshape(waves, LI.NSTR) > 0,
+                                (last_row + 31) // 32 * 32, 0).sum())
+    parse_bytes = 4 * (nb.numel() + in_words + tok.numel() + misc.numel())
+    parse_ops = 64 * (n_lit + 2 * n_match)
+    resolve_bytes = 4 * (outlen.numel() + rows_read + out.numel())
+    resolve_ops = 4 * len(corpus) + 8 * (n_lit + n_match)
+    print(f"lanes_parse {parse_ms:.4f} ms ({waves} waves), twin {parse_plain_ms:.1f} ms "
+          f"(1 wave); lanes_resolve {resolve_ms:.4f} ms, twin {resolve_plain_ms:.1f} ms; "
+          f"{n_lit} literals, {n_match} matches; bound bytes: lanes_parse "
+          f"{parse_bytes} ({in_words} input words), lanes_resolve {resolve_bytes} "
+          f"({rows_read} token rows)", flush=True)
+    return [
+        kernel_entry("lanes_parse", "moonbit_flate_tpu_torch/csrc/lanes_parse.cu",
+                     "moonbit_flate_tpu/ops/lanes_inflate.py:869",
+                     launches["lanes_parse"], parse_err, parse_ms, parse_plain_ms,
+                     parse_bytes, parse_ops),
+        kernel_entry("lanes_resolve", "moonbit_flate_tpu_torch/csrc/lanes_resolve.cu",
+                     "moonbit_flate_tpu/ops/lanes_resolve.py:292",
+                     launches["lanes_resolve"], resolve_err, resolve_ms,
+                     resolve_plain_ms, resolve_bytes, resolve_ops)]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    from moonbit_flate_tpu_torch.kernels import build
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    build.build_all()
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+
+    kernels = encode_phase(dev)
+    kernels += decode_phase(dev)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,22 @@
-"""moonbit_flate_tpu_torch: the DEFLATE encoder in PyTorch and CUDA.
+"""moonbit_flate_tpu_torch: the DEFLATE codec in PyTorch and CUDA.
 
 The port of ``moonbit_flate_tpu`` to an NVIDIA H100: the same raw
 DEFLATE bytes, with the TPU's Pallas kernels rewritten by hand in CUDA
 (``csrc/``, built with nvcc at first use).  This package imports
 neither JAX nor the JAX package.  Entry points run on the card unless
 the caller passes ``device="cpu"``, which takes the plain PyTorch route.
-Decompression is not ported yet.
+Ported so far: the one-segment encode (``compress``, ``CUDACompressor``)
+and the lane-parallel decode of shard streams of at most 4 KiB each
+(``decompress_shards``).  The scalar decode of monolithic streams is not
+ported yet.
 """
 
 from __future__ import annotations
 
 from .api.cuda import CUDACompressor
+from .ops.lanes_resolve import decompress_shards
 
-__all__ = ["CUDACompressor", "compress"]
+__all__ = ["CUDACompressor", "compress", "decompress_shards"]
 
 
 def compress(data: bytes, dictionary: bytes | None = None,

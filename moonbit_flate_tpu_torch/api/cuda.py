@@ -17,18 +17,10 @@ import torch
 
 from ..formats import constants as C
 from ..ops.pipeline import BLOCK, PAD, encode_segments
+from ..utils.device import resolve_device
 
 FINAL_EMPTY_BLOCK = bytes([0x01, 0x00, 0x00, 0xFF, 0xFF])
 _BATCH = 16  # segments per encode_segments call (bounds device memory)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; raises if CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch route")
-    return dev
 
 
 def stage_segment(context: bytes, seg: bytes, nb: int):

@@ -1,0 +1,119 @@
+"""Raw-DEFLATE streams that reach every rule of the lane shard decode.
+
+``lane_cases`` are the streams of tests/test_lanes_inflate.py (its
+truncated, BTYPE=3 and 24 fuzz mutants included); ``rule_cases`` are
+hand-made streams for each error and edge rule of kernel A.  The port's
+tests hold the port against the JAX package on them, and chip_smoke.py
+holds the CUDA kernels against their plain twins on them.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+SEGB = 4096   # output bytes of one shard, at most
+
+
+class _Bits:
+    """LSB-first bit writer for hand-made DEFLATE streams."""
+
+    def __init__(self):
+        self.v, self.n = 0, 0
+
+    def put(self, value, width):
+        self.v |= value << self.n
+        self.n += width
+
+    def code(self, code, width):            # Huffman codes go MSB first
+        self.put(int(f"{code:0{width}b}"[::-1], 2), width)
+
+    def fixed_lit(self, b):
+        if b < 144:
+            self.code(0x30 + b, 8)
+        else:
+            self.code(0x190 + b - 144, 9)
+
+    def tobytes(self):
+        return self.v.to_bytes((self.n + 7) // 8, "little")
+
+
+def lane_cases():
+    """The streams of tests/test_lanes_inflate.py."""
+    rng = np.random.default_rng(0)
+    co = zlib.compressobj(1, zlib.DEFLATED, -15)
+    m1 = co.compress(b"A" * 600) + co.flush(zlib.Z_FULL_FLUSH)
+    m2 = co.compress(b"B" * 500 + b"A" * 100) + co.flush()
+    cases = [
+        b"hello hello hello world",
+        (b"the quick brown fox " * 60)[:1200],
+        rng.integers(0, 256, 700, np.uint8).tobytes(),
+        b"",
+        b"A" * SEGB,
+        (b"xyz" * 700)[:SEGB],
+        rng.integers(0, 256, 900, np.uint8).tobytes() + b"abc" * 300,
+    ]
+    streams = [zlib.compress(c, 1)[2:-4] for c in cases] + [m1 + m2]
+    good = zlib.compress(b"some reasonable text " * 40, 1)[2:-4]
+    streams += [good[: len(good) // 2], bytes([0x07]), good]
+    rng = np.random.default_rng(11)
+    bases = [
+        zlib.compress((b"fuzz seed payload " * 60)[:1024], 1)[2:-4],
+        zlib.compress(rng.integers(0, 256, 800, np.uint8).tobytes(), 1)[2:-4],
+        zlib.compress(b"r" * 1500, 1)[2:-4],
+    ]
+    for k in range(24):
+        b = bytearray(bases[k % 3])
+        pos = int(rng.integers(0, len(b)))
+        b[pos] ^= int(rng.integers(1, 256))
+        streams.append(bytes(b))
+    return streams
+
+
+def rule_cases():
+    """Streams that reach kernel A's error and edge rules."""
+    out = []
+    # 40 empty non-final stored blocks: each pauses its stream for a
+    # whole 128-row chunk, so the token rows run out (ST_OVERFLOW)
+    out.append(b"\x00\x00\x00\xff\xff" * 40 + b"\x03\x00")
+    # a non-final fixed block that ends with 1 bit left: DONE by the EOF rule
+    w = _Bits()
+    w.put(0b010, 3)
+    for b in b"\x90\xa0\xb0\xc0\xd0":
+        w.fixed_lit(b)
+    w.code(0, 7)
+    out.append(w.tobytes())
+    # the same block with 6 bits left: a zero header (stored), corrupt
+    w = _Bits()
+    w.put(0b010, 3)
+    w.fixed_lit(65)
+    w.code(0, 7)
+    out.append(w.tobytes())
+    # a non-final stored block cut by a sync flush, then nothing
+    co = zlib.compressobj(1, zlib.DEFLATED, -15)
+    out.append(co.compress(b"sync flushed " * 30) + co.flush(zlib.Z_SYNC_FLUSH))
+    # a dynamic header cut inside the code lengths
+    rng = np.random.default_rng(9)
+    letters = np.frombuffer(b"etaoinshrdlucmfw .,", np.uint8)
+    dyn = zlib.compress(bytes(rng.choice(letters, 3000)), 9)[2:-4]
+    if (dyn[0] >> 1) & 3 != 2:
+        raise RuntimeError("zlib level 9 did not open with a dynamic block")
+    out += [dyn[:12], dyn[:30]]
+    # a stored block whose len and nlen do not match
+    out.append(b"\x01\x05\x00\x34\x12hello")
+    # a match whose distance reaches before the output start
+    w = _Bits()
+    w.put(0b011, 3)
+    w.fixed_lit(66)
+    w.code(1, 7)          # length code 257: length 3
+    w.code(4, 5)          # distance code 4: distance 5..6, 1 extra bit
+    w.put(1, 1)
+    w.code(0, 7)
+    out.append(w.tobytes())
+    # streams that inflate to more than SEGB bytes
+    rng = np.random.default_rng(5)
+    out.append(zlib.compress(b"A" * 5000, 1)[2:-4])
+    out.append(zlib.compress(rng.integers(0, 256, 4500, np.uint8).tobytes(), 1)[2:-4])
+    out.append(zlib.compress((b"abcdefgh" * 700), 9)[2:-4])
+    return out
