@@ -19,7 +19,19 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    path, ``decompress_shards`` over 32 x 1024 zlib level-1 shards of
    4096 bytes (128 MiB decoded), checks the bytes against the corpus
    and that both kernels were launched there; times it all;
-5. prints a JSON line of all kernels and, last, the device line.
+5. scalar decode: one launch of the parse kernel over 64 zlib level-1
+   streams of 1,048,560-byte segments with the case streams of
+   ``utils/stream_cases.py`` appended (every block type and error rule,
+   mutants included), held against its twin on the case rows and against
+   the host scanner's tokens on the 64 full-size rows; the resolve kernel
+   on every stream that parsed to the end, against its twin at full
+   size; drives the scalar main path, ``decompress_segments`` over the
+   64 streams (64 MiB decoded), checks the bytes against the corpus and
+   that both kernels were launched there; then the port's own encoder
+   output, ``decompress`` with the host and the device parser, a preset
+   dictionary, and the exceptions of a truncated and a corrupt stream;
+   times it all;
+6. prints a JSON line of all kernels and, last, the device line.
 
 Every phase raises on failure.  Without a CUDA device it exits non-zero
 before printing any result.  Imports nothing of JAX.
@@ -37,6 +49,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet, fp32)
 DEC_WAVES = 32              # decode main path: 32 x 1024 shards of 4096 bytes
+SEG_BYTES = 1048560         # the encoder's 16-block segment
+N_SEGS = 64                 # scalar decode main path: 64 segment streams
 
 
 def make_corpus(total=16 * (1 << 20), seed=0):
@@ -419,6 +433,213 @@ def decode_phase(dev):
                      resolve_plain_ms, resolve_bytes, resolve_ops)]
 
 
+def scalar_decode_phase(dev):
+    from moonbit_flate_tpu_torch import compress, decompress, decompress_segments
+    from moonbit_flate_tpu_torch.inflate import cuda_inflate as CI
+    from moonbit_flate_tpu_torch.ops import parse as P
+    from moonbit_flate_tpu_torch.ops import resolve as R
+    from moonbit_flate_tpu_torch.utils import stream_cases as SC
+    from moonbit_flate_tpu_torch.utils.errors import (CorruptInputError,
+                                                      UnexpectedEOFError)
+    from moonbit_flate_tpu_torch.utils.lane_cases import lane_cases, rule_cases
+
+    t0 = time.time()
+    corpus = make_corpus(total=N_SEGS * SEG_BYTES, seed=0)
+    segs = [corpus[i * SEG_BYTES:(i + 1) * SEG_BYTES] for i in range(N_SEGS)]
+    zstreams = [zlib.compress(s, 1)[2:-4] for s in segs]
+    sizes = [SEG_BYTES] * N_SEGS
+    print(f"scalar corpus: {N_SEGS} segments, {len(corpus)} bytes -> "
+          f"{sum(map(len, zstreams))} compressed, made in {time.time() - t0:.1f} s",
+          flush=True)
+
+    # the geometry decompress_segments derives from the sizes
+    n_chunks = -(-(SEG_BYTES + 1) // P.OUT_CHUNK)
+    no_pad = nt_pad = n_chunks * P.OUT_CHUNK
+
+    # ---- parse kernel against its twin and the host scanner ------------------
+    # One launch at the main path's shape: the 64 streams, then the case
+    # streams.  The twin is a step loop, so it runs on the case rows only
+    # (same n_chunks); the 64 full-size rows are held against the host
+    # scanner's tokens.  No stream exhausts 129 chunks, so status 0 comes
+    # from a second launch of the case rows at their own small capacity.
+    t0 = time.time()
+    cases = [c[1] for c in SC.stream_cases()] + lane_cases() + rule_cases() \
+        + SC.fuzz_cases()
+    n_cases = len(cases)
+    nbc, wc = P.stage_streams(zstreams + cases)
+    toks, cnt = P.parse_batch(nbc, wc, n_chunks)
+    torch.cuda.synchronize()
+    rows = slice(N_SEGS, None)
+    nb_c, w_c = nbc[rows], wc[rows].contiguous()
+    t1 = time.time()
+    toks_r, cnt_r = P.parse_batch_ref(nb_c, w_c, n_chunks)
+    torch.cuda.synchronize()
+    parse_plain_ms = (time.time() - t1) * 1e3
+    parse_err = max_abs_err((toks[rows], cnt[rows]), (toks_r, cnt_r))
+    toks_s, cnt_s = P.parse_batch(nb_c, w_c, SC.CASE_CHUNKS, SC.CASE_CHUNK)
+    parse_err = max(parse_err, max_abs_err(
+        (toks_s, cnt_s), P.parse_batch_ref(nb_c, w_c, SC.CASE_CHUNKS, SC.CASE_CHUNK)))
+    if parse_err:
+        raise AssertionError(f"parse kernel differs from its twin: {parse_err}")
+    cnt_h = cnt.cpu().numpy()
+    st = np.concatenate([cnt_h[:, 1], cnt_s[:, 1].cpu().numpy()])
+    kinds = {int(k): int(c) for k, c in zip(*np.unique(st, return_counts=True))}
+    for want in (P.ST_DONE, P.ST_MORE, P.ST_CORRUPT, P.ST_TRUNC):
+        if want not in kinds:
+            raise AssertionError(f"parse check never reached status {want}: {kinds}")
+    if not (cnt_h[:N_SEGS, 1] == P.ST_DONE).all() \
+            or not (cnt_h[:N_SEGS, 2] == SEG_BYTES).all():
+        raise AssertionError("a full-size stream did not parse to the end")
+    for i, s in enumerate(zstreams):
+        if not np.array_equal(toks[i, :cnt_h[i, 0]].cpu().numpy(), CI.scan_tokens(s)):
+            raise AssertionError(f"parse kernel differs from the host scanner, stream {i}")
+    print(f"parse: {N_SEGS} full-size streams equal to the host scanner, "
+          f"{n_cases} case streams equal to the twin at {n_chunks} x {P.OUT_CHUNK} "
+          f"and {SC.CASE_CHUNKS} x {SC.CASE_CHUNK} tokens (statuses {kinds}) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del toks_r, cnt_r, toks_s, cnt_s, nb_c, w_c
+
+    # ---- resolve kernel against its twin, every DONE row, full size --------
+    t0 = time.time()
+    done = torch.from_numpy(np.nonzero(cnt_h[:, 1] == P.ST_DONE)[0]).to(dev)
+    tk, nk = toks[done].contiguous(), cnt[done, 0].contiguous()
+    out = R.resolve_batch(tk, nk, nt_pad, no_pad)
+    resolve_err = 0
+    for lo in range(0, len(done), 32):         # the twin keeps ~20 int64 arrays
+        ref = R.resolve_batch_ref(tk[lo:lo + 32], nk[lo:lo + 32], nt_pad, no_pad)
+        resolve_err = max(resolve_err, max_abs_err((out[lo:lo + 32],), (ref,)))
+        del ref
+    tcases = SC.token_cases()
+    tt = np.zeros((len(tcases), 1024), np.int32)
+    tn = np.zeros(len(tcases), np.int32)
+    for i, (_, t) in enumerate(tcases):
+        tt[i, :len(t)] = t
+        tn[i] = len(t)
+    tt[:, 900:] = 77                           # what lies past ntok is ignored
+    tt, tn = torch.from_numpy(tt).to(dev), torch.from_numpy(tn).to(dev)
+    resolve_err = max(resolve_err, max_abs_err(
+        (R.resolve_batch(tt, tn, 1024, R.OUT_BYTES),),
+        (R.resolve_batch_ref(tt, tn, 1024, R.OUT_BYTES),)))
+    if resolve_err:
+        raise AssertionError(f"resolve kernel differs from its twin: {resolve_err}")
+    got = out[:N_SEGS].cpu().numpy().view(np.uint8)[:, :SEG_BYTES]
+    if got.tobytes() != corpus:
+        raise AssertionError("resolve kernel output is not the corpus")
+    print(f"resolve: {len(done)} streams of {no_pad} bytes and {len(tcases)} token "
+          f"cases equal to the twin in {time.time() - t0:.1f} s", flush=True)
+    del cases, nbc, wc, toks, cnt, tk, nk, out, got, tt, tn
+
+    # ---- main path: counts from 0, one decode, counts read after ------------
+    P.launches = 0
+    R.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dec = decompress_segments(zstreams, sizes)
+    first_s = time.time() - t0
+    launches = {"parse": P.launches, "resolve": R.launches}
+    if b"".join(dec) != corpus:
+        raise AssertionError("scalar main path does not give the corpus back")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"scalar main path never launched the {name} kernel")
+    print(f"scalar main path: {N_SEGS} streams -> {len(corpus)} bytes in "
+          f"{first_s:.3f} s, launches {launches}", flush=True)
+
+    t0 = time.time()
+    own = [compress(s) for s in segs[:8]]
+    if decompress_segments(own, sizes[:8]) != segs[:8]:
+        raise AssertionError("the port's own streams do not decode to their segments")
+    for kw in ({}, {"parse_on_device": True}):
+        if decompress(own[0], **kw) != segs[0]:
+            raise AssertionError(f"decompress({kw}) differs from the segment")
+    zdict = corpus[5 * SEG_BYTES: 5 * SEG_BYTES + 32768]
+    payload = corpus[5 * SEG_BYTES + 20000: 5 * SEG_BYTES + 120000]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, zdict=zdict)
+    with_dict = co.compress(payload) + co.flush()
+    if decompress(with_dict, dictionary=zdict) != payload:
+        raise AssertionError("dictionary stream does not decode to its payload")
+    for bad, exc in ((zstreams[1][: len(zstreams[1]) // 2], UnexpectedEOFError),
+                     (bytes([0x06]) + zstreams[1][1:], CorruptInputError)):
+        try:
+            decompress_segments([zstreams[0], bad], sizes[:2])
+        except exc:
+            continue
+        raise AssertionError(f"decompress_segments did not raise {exc.__name__}")
+    print(f"own streams ({sum(map(len, own))} bytes for 8 segments), decompress with "
+          f"both parsers, dictionary and the two exceptions passed in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    # ---- timing -------------------------------------------------------------
+    t0 = time.time()
+    dec2 = decompress_segments(zstreams, sizes)
+    dec_s = time.time() - t0
+    if dec2 != dec:
+        raise AssertionError("second scalar decode differs from the first")
+    print(f"scalar decode: {dec_s:.3f} s for {len(corpus)} bytes = "
+          f"{len(corpus) / dec_s / 1e6:.2f} MB/s", flush=True)
+    del dec2
+    profile_main_path("scalar decode", lambda: decompress_segments(zstreams, sizes))
+
+    # one decode in parts: staging (host, then the copy to the card), the
+    # two kernels, the status readback, and the bytes (copy to the host,
+    # split into bytes objects)
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.time())
+
+    mark()
+    nb, w = P.stage_streams(zstreams)
+    mark()
+    out, cnt = CI._parse_resolve(nb, w, n_chunks)
+    mark()
+    n_out = cnt.cpu().numpy()[:, 2].tolist()
+    mark()
+    out_h = out.cpu().numpy().view(np.uint8)
+    if [out_h[i, :n].tobytes() for i, n in enumerate(n_out)] != dec:
+        raise AssertionError("scalar decode in parts differs from decompress_segments")
+    mark()
+    parts = np.diff(marks) * 1e3
+    print("scalar decode breakdown: staging {:.1f} ms, parse + resolve {:.1f} ms, "
+          "status readback {:.1f} ms, bytes to the host {:.1f} ms; total {:.1f} ms"
+          .format(*parts, parts.sum()), flush=True)
+
+    toks, cnt = P.parse_batch(nb, w, n_chunks)
+    ntok = cnt[:, 0].contiguous()
+    parse_ms = cuda_ms(lambda: P.parse_batch(nb, w, n_chunks), 3)
+    resolve_ms = cuda_ms(lambda: R.resolve_batch(toks, ntok, nt_pad, no_pad), 5)
+    resolve_plain_ms = cuda_ms(
+        lambda: [R.resolve_batch_ref(toks[lo:lo + 32], ntok[lo:lo + 32], nt_pad, no_pad)
+                 for lo in range(0, N_SEGS, 32)], 1)
+    # bytes this run's data needs, each read or written once.  The parser
+    # reads nbits and each stream's words up to its last bit, and writes
+    # the whole token array and cnt.  The resolver reads ntok and each
+    # stream's ntok tokens and writes no_pad bytes a stream.  Operations:
+    # the parser some 24 a decoded symbol (one a literal, two a match),
+    # the resolver 4 a byte and 8 a record.
+    n_tok = int(ntok.sum())
+    n_match = int((toks < 0).sum())
+    in_words = int(((nb.long() + 31) // 32).sum())
+    parse_bytes = 4 * (nb.numel() + in_words + toks.numel() + cnt.numel())
+    parse_ops = 24 * (n_tok + n_match)
+    resolve_bytes = 4 * (ntok.numel() + n_tok) + N_SEGS * no_pad
+    resolve_ops = 4 * len(corpus) + 8 * n_tok
+    print(f"parse {parse_ms:.4f} ms ({N_SEGS} streams, {n_chunks} chunks), twin "
+          f"{parse_plain_ms:.1f} ms (the {n_cases} case rows only); resolve {resolve_ms:.4f} ms, twin {resolve_plain_ms:.1f} ms "
+          f"({N_SEGS} streams, two calls of 32); {n_tok} tokens, {n_match} matches; "
+          f"bound bytes: parse {parse_bytes} ({in_words} input words), resolve "
+          f"{resolve_bytes}", flush=True)
+    return [
+        kernel_entry("parse", "moonbit_flate_tpu_torch/csrc/parse.cu",
+                     "moonbit_flate_tpu/ops/parse_pallas.py:593", launches["parse"],
+                     parse_err, parse_ms, parse_plain_ms, parse_bytes, parse_ops),
+        kernel_entry("resolve", "moonbit_flate_tpu_torch/csrc/resolve.cu",
+                     "moonbit_flate_tpu/ops/resolve_pallas.py:236", launches["resolve"],
+                     resolve_err, resolve_ms, resolve_plain_ms, resolve_bytes,
+                     resolve_ops)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -437,6 +658,7 @@ def main():
 
     kernels = encode_phase(dev)
     kernels += decode_phase(dev)
+    kernels += scalar_decode_phase(dev)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,18 +5,22 @@ DEFLATE bytes, with the TPU's Pallas kernels rewritten by hand in CUDA
 (``csrc/``, built with nvcc at first use).  This package imports
 neither JAX nor the JAX package.  Entry points run on the card unless
 the caller passes ``device="cpu"``, which takes the plain PyTorch route.
-Ported so far: the one-segment encode (``compress``, ``CUDACompressor``)
-and the lane-parallel decode of shard streams of at most 4 KiB each
-(``decompress_shards``).  The scalar decode of monolithic streams is not
-ported yet.
+Ported so far: the one-segment encode (``compress``, ``CUDACompressor``),
+the lane-parallel decode of shard streams of at most 4 KiB each
+(``decompress_shards``) and the scalar-path decode of streams of any
+size (``decompress_segments`` for a batch of independent streams, parse
+and resolve kernels; ``decompress`` for one stream, with a preset
+dictionary if it has one).
 """
 
 from __future__ import annotations
 
 from .api.cuda import CUDACompressor
+from .inflate.cuda_inflate import decompress, decompress_segments
 from .ops.lanes_resolve import decompress_shards
 
-__all__ = ["CUDACompressor", "compress", "decompress_shards"]
+__all__ = ["CUDACompressor", "compress", "decompress", "decompress_segments",
+           "decompress_shards"]
 
 
 def compress(data: bytes, dictionary: bytes | None = None,

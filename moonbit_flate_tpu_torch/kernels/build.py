@@ -23,7 +23,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("walk", "pack", "lanes_parse", "lanes_resolve")
+KERNELS = ("walk", "pack", "lanes_parse", "lanes_resolve", "parse", "resolve")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

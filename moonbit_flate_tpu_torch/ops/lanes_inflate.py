@@ -106,10 +106,10 @@ def _wrap32(x):
 
 def _peek(words, bp):
     """32 bits of each stream starting at bit bp (LSB first), zero past
-    IN_W words.  words: int64[B, IN_W + 2] (u32 values, two zero words
-    of padding); bp: int64[B] or int64[B, k]."""
+    the stream's W words.  words: int64[B, W + 2] (u32 values, two zero
+    words of padding); bp: int64[B] or int64[B, k]."""
     pos = bp if bp.dim() == 2 else bp[:, None]
-    idx = torch.clamp(pos >> 5, max=IN_W)
+    idx = torch.clamp(pos >> 5, max=words.shape[1] - 2)
     lo = words.gather(1, idx)
     hi = words.gather(1, idx + 1)
     v = (((hi << 32) | lo) >> (pos & 31)) & _M32

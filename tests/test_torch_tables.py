@@ -101,6 +101,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "moonbit_flate_tpu_torch.api.cuda, moonbit_flate_tpu_torch.kernels.build\n"
         "import moonbit_flate_tpu_torch.ops.lanes_inflate, "
         "moonbit_flate_tpu_torch.ops.lanes_resolve, moonbit_flate_tpu_torch.utils.errors\n"
+        "import moonbit_flate_tpu_torch.native, moonbit_flate_tpu_torch.ops.parse, "
+        "moonbit_flate_tpu_torch.ops.resolve, "
+        "moonbit_flate_tpu_torch.inflate.cuda_inflate, "
+        "moonbit_flate_tpu_torch.utils.stream_cases\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')]\n"
         "assert not bad, bad\n"
@@ -113,7 +117,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
-    from moonbit_flate_tpu_torch import compress, decompress_shards
+    from moonbit_flate_tpu_torch import (compress, decompress, decompress_segments,
+                                         decompress_shards)
     from moonbit_flate_tpu_torch.api.cuda import CUDACompressor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -123,4 +128,8 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
         compress(b"abc")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decompress_shards([b"\x03\x00"], [0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decompress_segments([b"\x03\x00"], [0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decompress(b"\x03\x00")
     assert CUDACompressor(device="cpu").device.type == "cpu"
