@@ -31,12 +31,24 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    output, ``decompress`` with the host and the device parser, a preset
    dictionary, and the exceptions of a truncated and a corrupt stream;
    times it all;
-6. prints a JSON line of all kernels and, last, the device line.
+6. manifest: holds the batched pack kernel against its twin and, row by
+   row, against the one-segment pack kernel, on the units of 16 real
+   segments and on random units with an all-zero row and a row clipped
+   at n_words; drives the manifest main path,
+   ``compress_with_manifest`` over the 64-shard corpus (4 waves of 16
+   through ``encode_segments_batched`` and ``compact_streams``) and
+   ``decompress_with_manifest`` back, checks the bytes, that stock zlib
+   reads the stream, that the stream equals ``CUDACompressor``'s, and
+   the launch counts of every kernel on that path; a one-shard case on
+   the lane route; the card against the plain route; times both encode
+   paths and the decode;
+7. prints a JSON line of all kernels and, last, the device line.
 
 Every phase raises on failure.  Without a CUDA device it exits non-zero
 before printing any result.  Imports nothing of JAX.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -53,6 +65,7 @@ SEG_BYTES = 1048560         # the encoder's 16-block segment
 N_SEGS = 64                 # scalar decode main path: 64 segment streams
 
 
+@functools.lru_cache(maxsize=None)
 def make_corpus(total=16 * (1 << 20), seed=0):
     """Synthetic Silesia stand-in: mixed text / binary records /
     repetitive / random sections (same generator as bench.py)."""
@@ -130,8 +143,12 @@ def profile_main_path(label, fn):
     if busy_ms == 0:
         print(f"profile {label}: wall {wall_ms:.1f} ms, device time not measured")
         return
+    host_calls = {k: sum(e.count for e in events if k in e.key)
+                  for k in ("cudaLaunchKernel", "Synchronize")}
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}")
+          f"idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{host_calls['cudaLaunchKernel']} cudaLaunchKernel calls, "
+          f"{host_calls['Synchronize']} synchronizing calls")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -189,9 +206,9 @@ def encode_phase(dev):
     print(f"walk: {len(staged)} segments equal to the twin "
           f"({matches} matches, {matched_bytes} matched bytes)", flush=True)
 
-    vals, wids = pipeline._tokens_to_units(
-        data[0], ns[0], ctxs[0], committed[0], is_match[0], mlen2[0],
-        dist2[0], nb)
+    vals, wids = (t[0] for t in pipeline._tokens_to_units(
+        data[:1], ns[:1], ctxs[:1], committed[:1], is_match[:1], mlen2[:1],
+        dist2[:1], nb))
     n_words = pipeline.n_words_for(nb)
     rng = np.random.default_rng(1)
     rw = rng.integers(0, 29, vals.numel()).astype(np.int32)
@@ -640,6 +657,171 @@ def scalar_decode_phase(dev):
                      resolve_ops)]
 
 
+def manifest_phase(dev):
+    from moonbit_flate_tpu_torch import (CUDACompressor, compress_with_manifest,
+                                         decompress_with_manifest)
+    from moonbit_flate_tpu_torch.api.cuda import stage_segment
+    from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
+    from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
+    from moonbit_flate_tpu_torch.ops import pack, pipeline, walk
+    from moonbit_flate_tpu_torch.ops import parse as P
+    from moonbit_flate_tpu_torch.ops import resolve as R
+    from moonbit_flate_tpu_torch.parallel.sharded import WAVE
+
+    nb = SEG_BYTES // pipeline.BLOCK
+    S = SEG_BYTES
+    B = WAVE
+    corpus = make_corpus(total=N_SEGS * SEG_BYTES, seed=0)
+    n_words = pipeline.n_words_for(nb)
+
+    # ---- the batched pack against its twin and against kernel b --------------
+    # the units of one wave of real shards, as encode_segments_batched
+    # makes them, and random units (70% of the widths zero) with a row of
+    # all-zero widths and a row whose bits run past n_words
+    t0 = time.time()
+    staged = [stage_segment(b"", corpus[i * S:(i + 1) * S], nb) for i in range(B)]
+    data = torch.from_numpy(np.stack([s[0] for s in staged])).to(dev)
+    ns = [s[1] for s in staged]
+    ctxs = [0] * B
+    as_t = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    mlen, dist = pipeline._find_clip_batch(data, as_t(ns), as_t(ctxs), nb)
+    committed, is_match, mlen, dist = walk.commit_walk(data, mlen, dist, ns, ctxs, nb)
+    vals, wids = pipeline._tokens_to_units(data, ns, ctxs, committed, is_match,
+                                           mlen, dist, nb)
+    del data, mlen, dist, committed, is_match
+    NU = vals.shape[1]
+    rng = np.random.default_rng(2)
+    rw = rng.integers(0, 29, (B, NU)).astype(np.int32)
+    rw[rng.random((B, NU)) < 0.7] = 0
+    rw[3] = 0
+    rw[5] = rng.integers(20, 29, NU)
+    if int(rw[5].sum()) <= 32 * n_words:
+        raise AssertionError("the clipped row does not run past n_words")
+    rv = rng.integers(0, 1 << 28, (B, NU)).astype(np.int32)
+    cases = [(vals, wids), (torch.from_numpy(rv).to(dev), torch.from_numpy(rw).to(dev))]
+    err = 0
+    for v, w in cases:
+        got = pack.pack_units_dense_batch(v, w, n_words)
+        err = max(err, max_abs_err(got, pack.pack_units_batch_ref(v, w, n_words)))
+        rows = [pack.pack_units_dense(v[b], w[b], n_words) for b in range(B)]
+        err = max(err, max_abs_err(got, (torch.stack([r[0] for r in rows]),
+                                         torch.stack([r[1] for r in rows]))))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"pack_batch kernel differs from its twin or from "
+                             f"the one-segment kernel: {err}")
+    print(f"pack_batch: {len(cases)} sets of {B} x {NU} units equal to the twin and, "
+          f"row by row, to the pack kernel, in {time.time() - t0:.1f} s", flush=True)
+    del cases, rows, got
+
+    # ---- main path: counts from 0, compress and decompress, counts read after
+    mods = {"walk": walk, "pack": pack, "lanes_parse": LI, "lanes_resolve": LR,
+            "parse": P, "resolve": R}
+
+    def reset():
+        for m in mods.values():
+            m.launches = 0
+        pack.launches_batch = 0
+
+    def counts():
+        return dict({k: m.launches for k, m in mods.items()},
+                    pack_batch=pack.launches_batch)
+
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stream, manifest = compress_with_manifest(corpus, nb)
+    enc_first_s = time.time() - t0
+    back = decompress_with_manifest(stream, manifest)
+    launches = counts()
+    waves = -(-N_SEGS // WAVE)
+    want = {"walk": waves, "pack_batch": waves, "pack": 0, "lanes_parse": 0,
+            "lanes_resolve": 0}
+    if any(launches[k] != v for k, v in want.items()) \
+            or launches["parse"] < 1 or launches["resolve"] < 1:
+        raise AssertionError(f"manifest main path launches {launches}, "
+                             f"expected {want} and parse, resolve >= 1")
+    if back != corpus:
+        raise AssertionError("manifest main path does not give the corpus back")
+    if zlib.decompress(stream, wbits=-15) != corpus:
+        raise AssertionError("stock zlib does not read the manifest stream")
+    if manifest.payload_sizes != [S] * N_SEGS \
+            or sum(manifest.comp_sizes) + 5 != len(stream):
+        raise AssertionError("manifest sizes do not describe the stream")
+    comp = CUDACompressor(blocks_per_segment=nb)
+    if comp.compress(corpus) != stream:
+        raise AssertionError("manifest stream differs from CUDACompressor's")
+    print(f"manifest main path: {len(corpus)} -> {len(stream)} bytes in "
+          f"{N_SEGS} shards, {waves} waves (first call {enc_first_s:.2f} s), "
+          f"decoded back, zlib reads it, equal to CUDACompressor's stream; "
+          f"launches {launches}", flush=True)
+
+    # one shard of at most 4096 bytes takes the lane route
+    reset()
+    small = corpus[70000:74000]
+    s_stream, s_man = compress_with_manifest(small, nb)
+    if decompress_with_manifest(s_stream, s_man) != small:
+        raise AssertionError("one-shard manifest case does not round-trip")
+    lane = counts()
+    if lane["lanes_parse"] < 1 or lane["lanes_resolve"] < 1 or lane["parse"] \
+            or lane["resolve"] or lane["pack_batch"] != 1:
+        raise AssertionError(f"one-shard manifest case launches {lane}")
+    # the card against the plain route: three shards, the last one short
+    tiny = corpus[3 * S: 3 * S + 2 * 2 * pipeline.BLOCK + 12345]
+    on_card = compress_with_manifest(tiny, 2, device="cuda")
+    plain = compress_with_manifest(tiny, 2, device="cpu")
+    if on_card[0] != plain[0] or on_card[1].to_dict() != plain[1].to_dict() \
+            or len(plain[1].comp_sizes) != 3:
+        raise AssertionError("manifest: card and plain route differ")
+    print(f"one-shard lane case (launches {lane}) and card-vs-plain check passed",
+          flush=True)
+
+    # ---- timing -------------------------------------------------------------
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        return time.time() - t0, out
+
+    mb = len(corpus) / 1e6
+    man_s, out = wall_s(lambda: compress_with_manifest(corpus, nb))
+    if out[0] != stream:
+        raise AssertionError("second manifest encode differs from the first")
+    loop_s, _ = wall_s(lambda: comp.compress(corpus))
+    dec_s, out = wall_s(lambda: decompress_with_manifest(stream, manifest))
+    if out != corpus:
+        raise AssertionError("second manifest decode differs from the corpus")
+    del out
+    print(f"manifest encode: {man_s:.3f} s = {mb / man_s:.2f} MB/s "
+          f"(compress_with_manifest, batched); {loop_s:.3f} s = {mb / loop_s:.2f} "
+          f"MB/s (CUDACompressor, per-segment loop); manifest decode: {dec_s:.3f} s "
+          f"= {mb / dec_s:.2f} MB/s, all for {len(corpus)} bytes", flush=True)
+    profile_main_path("manifest encode (batched)",
+                      lambda: compress_with_manifest(corpus, nb))
+    profile_main_path("encode loop, same corpus", lambda: comp.compress(corpus))
+
+    batch_ms = cuda_ms(lambda: pack.pack_units_dense_batch(vals, wids, n_words), 20)
+    rows_ms = cuda_ms(lambda: [pack.pack_units_dense(vals[b], wids[b], n_words)
+                               for b in range(B)], 20)
+    plain_ms = cuda_ms(lambda: pack.pack_units_batch_ref(vals, wids, n_words), 5)
+    # the wrapper's parts that run before the launch, timed alone
+    offsets_ms = cuda_ms(lambda: pack._offsets(wids), 20)
+    zero_ms = cuda_ms(lambda: torch.zeros(B, n_words, dtype=torch.int32, device=dev), 20)
+    # bytes: values and widths in, words and the totals out, each once;
+    # the int64 offsets are made and read inside the function and are not
+    # counted (16 B a unit more, written and read, if they were)
+    nbytes = B * (NU * 8 + n_words * 4 + 4)
+    print(f"pack_batch {batch_ms:.4f} ms for {B} x {NU} units in one launch; "
+          f"{B} launches of pack on the same rows {rows_ms:.4f} ms; twin "
+          f"{plain_ms:.4f} ms; of the wrapper's time the row-wise int64 offsets "
+          f"take {offsets_ms:.4f} ms and zeroing the words {zero_ms:.4f} ms; "
+          f"bound bytes {nbytes}", flush=True)
+    return [kernel_entry("pack_batch", "moonbit_flate_tpu_torch/csrc/pack.cu",
+                         "moonbit_flate_tpu/ops/pack.py:199",
+                         launches["pack_batch"], err, batch_ms, plain_ms, nbytes,
+                         12 * B * NU)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -656,10 +838,13 @@ def main():
     build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
-    kernels = encode_phase(dev)
-    kernels += decode_phase(dev)
-    kernels += scalar_decode_phase(dev)
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    kernels = []
+    for phase in (encode_phase, decode_phase, scalar_decode_phase, manifest_phase):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        kernels += phase(dev)
+        print(f"{phase.__name__}: {time.time() - t0:.1f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ the lane-parallel decode of shard streams of at most 4 KiB each
 (``decompress_shards``) and the scalar-path decode of streams of any
 size (``decompress_segments`` for a batch of independent streams, parse
 and resolve kernels; ``decompress`` for one stream, with a preset
-dictionary if it has one).
+dictionary if it has one), and the shard-manifest pair on one device
+(``compress_with_manifest`` over the batched segment encode with the
+batched pack kernel and the on-device stream compaction,
+``decompress_with_manifest`` over the two decode paths).
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ from __future__ import annotations
 from .api.cuda import CUDACompressor
 from .inflate.cuda_inflate import decompress, decompress_segments
 from .ops.lanes_resolve import decompress_shards
+from .parallel.sharded import (ShardManifest, compress_with_manifest,
+                               decompress_with_manifest)
 
-__all__ = ["CUDACompressor", "compress", "decompress", "decompress_segments",
-           "decompress_shards"]
+__all__ = ["CUDACompressor", "ShardManifest", "compress",
+           "compress_with_manifest", "decompress", "decompress_segments",
+           "decompress_shards", "decompress_with_manifest"]
 
 
 def compress(data: bytes, dictionary: bytes | None = None,

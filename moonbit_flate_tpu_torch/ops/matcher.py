@@ -28,10 +28,11 @@ _WIN = 2 * _WIN_STRIDE  # window width: upper-half positions see >= 32 KB
 
 
 def _load32(data: torch.Tensor, SE: int) -> torch.Tensor:
-    """Little-endian 32-bit loads at positions 0..SE-1, as int64."""
+    """Little-endian 32-bit loads at positions 0..SE-1 of the last
+    axis, as int64."""
     d = data.long()
-    return (d[:SE] | (d[1:SE + 1] << 8) | (d[2:SE + 2] << 16)
-            | (d[3:SE + 3] << 24))
+    return (d[..., :SE] | (d[..., 1:SE + 1] << 8) | (d[..., 2:SE + 2] << 16)
+            | (d[..., 3:SE + 3] << 24))
 
 
 def greedy_commit_xla(mlen: torch.Tensor, n: int, start: int = 0):
@@ -74,81 +75,98 @@ def _resolve_sorted(skey: torch.Tensor, sj: torch.Tensor) -> torch.Tensor:
 
 
 def _nearest_prev_flat(u32e: torch.Tensor, S: int) -> torch.Tensor:
-    """Flat-sort candidate search (small segments)."""
-    skey, spos = torch.sort(u32e[:S], stable=True)
-    cand = torch.empty(S, dtype=torch.int64, device=u32e.device)
-    cand[spos] = _resolve_sorted(skey, spos)
+    """Flat-sort candidate search (small segments), one sort a row.
+    u32e: int64[B, >= S]; returns int64[B, S]."""
+    skey, spos = torch.sort(u32e[:, :S], dim=1, stable=True)
+    cand = torch.empty_like(spos)
+    cand.scatter_(1, spos, _resolve_sorted(skey, spos))
     return cand
 
 
 def _nearest_prev_windowed(u32e: torch.Tensor, S: int) -> torch.Tensor:
     """Windowed batched candidate search.
 
-    Distances are <= 32768, so only a 32 KB history matters: the
+    Distances are <= 32768, so only a 32 KB history matters: each
     segment is cut into 64 KB windows at 32 KB stride, each window is
-    sorted on its own, and each position takes its candidate from the
-    window where it sits in the upper half (window 0 serves its whole
-    width).
+    sorted on its own ([B, NW, 65536], one batched sort), and each
+    position takes its candidate from the window where it sits in the
+    upper half (window 0 serves its whole width).
     """
-    H, W = _WIN_STRIDE, _WIN
+    H = _WIN_STRIDE
+    B = u32e.shape[0]
     NH = -(-S // H)
     NW = max(NH - 1, 1)
     need = (NW + 1) * H + 8
-    u32p = torch.cat([u32e, u32e.new_zeros(max(0, need - u32e.shape[0]))])
-    halves = u32p[: (NW + 1) * H].reshape(NW + 1, H)
-    key = torch.cat([halves[:-1], halves[1:]], dim=1)           # [NW, W]
-    skey, sj = torch.sort(key, dim=1, stable=True)
+    u32p = torch.cat(
+        [u32e, u32e.new_zeros(B, max(0, need - u32e.shape[1]))], dim=1)
+    halves = u32p[:, : (NW + 1) * H].reshape(B, NW + 1, H)
+    key = torch.cat([halves[:, :-1], halves[:, 1:]], dim=2)      # [B, NW, W]
+    skey, sj = torch.sort(key, dim=2, stable=True)
     cand_s = _resolve_sorted(skey, sj)                           # -1 = none
     cand_w = torch.empty_like(cand_s)
-    cand_w.scatter_(1, sj, cand_s)
+    cand_w.scatter_(2, sj, cand_s)
     base = (torch.arange(NW, device=u32e.device) * H)[:, None]
     cand_g = torch.where(cand_w >= 0, cand_w + base, -1)
-    return torch.cat([cand_g[0], cand_g[1:, H:].reshape(-1)])[:S]
+    return torch.cat([cand_g[:, 0], cand_g[:, 1:, H:].reshape(B, -1)],
+                     dim=1)[:, :S]
 
 
-def _small_period_lengths(data: torch.Tensor, S: int) -> torch.Tensor:
-    """z[d-1, i] = length of the agreement run between data[i:] and
-    data[i-d:] for d = 1..Z_LAGS (0 where they differ or i < d),
-    clipped at MAX_MATCH_LENGTH."""
-    pos = torch.arange(S, dtype=torch.int64, device=data.device)
-    rows = []
+def _small_period_lengths(data: torch.Tensor) -> torch.Tensor:
+    """z[b, d-1, i] = length of the agreement run between data[b, i:]
+    and data[b, i-d:] for d = 1..Z_LAGS (0 where they differ or i < d),
+    clipped at MAX_MATCH_LENGTH.  data: uint8[B, S]; returns
+    int32[B, Z_LAGS, S].  All lags of all rows go through one reverse
+    cummin: the scan runs serially along a row, and its time hardly
+    depends on the number of rows."""
+    B, S = data.shape
+    pos = torch.arange(S, dtype=torch.int32, device=data.device)
+    eq = torch.zeros(B, Z_LAGS, S, dtype=torch.bool, device=data.device)
     for d in range(1, Z_LAGS + 1):
-        eq = torch.zeros(S, dtype=torch.bool, device=data.device)
-        eq[d:] = data[d:S] == data[:S - d]
-        rows.append(torch.where(eq, S, pos))
-    m = torch.stack(rows)                                         # [Z, S]
-    z = torch.flip(torch.cummin(torch.flip(m, [1]), dim=1).values, [1])
-    return torch.clamp(z - pos[None, :], max=C.MAX_MATCH_LENGTH)
+        eq[:, d - 1, d:] = data[:, d:] == data[:, :S - d]
+    m = torch.where(eq, S, pos)
+    z = torch.flip(torch.cummin(torch.flip(m, [2]), dim=2).values, [2])
+    return torch.clamp(z - pos, max=C.MAX_MATCH_LENGTH)
 
 
-def find_matches(data: torch.Tensor, n: int):
-    """Per-position best matches for one segment.
+def find_matches_batch(data: torch.Tensor, n: torch.Tensor):
+    """Per-position best matches for B segments.
 
-    data: uint8[S + 320] zero-padded past n; n: valid byte count.
-    Returns (mlen[S] int32, dist[S] int32): exact lengths for
-    dist <= Z_LAGS, SORT_CAP for other candidates, 0 where none.
+    data: uint8[B, S + 320], each row zero-padded past its n; n:
+    int64[B] valid byte counts.  Returns (mlen, dist) int32[B, S]:
+    exact lengths for dist <= Z_LAGS, SORT_CAP for other candidates, 0
+    where none.  Rows are independent: row b equals ``find_matches`` of
+    that segment.
     """
-    S = data.shape[0] - 320
+    S = data.shape[1] - 320
+    n = n.long()[:, None]
     u32e = _load32(data, S + 300)
     pos = torch.arange(S, dtype=torch.int64, device=data.device)
     if S > 2 * _WIN:
         cand = _nearest_prev_windowed(u32e, S)
     else:
         cand = _nearest_prev_flat(u32e, S)
+    del u32e
     dist = pos - cand
     ok = (pos <= n - 4) & (cand >= 0) & (dist <= C.MAX_MATCH_OFFSET)
     mlen = torch.where(ok, SORT_CAP, 0)
 
-    z = _small_period_lengths(data[:S], S)
-    sel = torch.zeros(S, dtype=torch.int64, device=data.device)
+    z = _small_period_lengths(data[:, :S])
     for d in range(1, Z_LAGS + 1):
-        sel = torch.where(dist == d, z[d - 1], sel)
-    mlen = torch.where(ok & (dist <= Z_LAGS), sel, mlen)
+        mlen = torch.where(ok & (dist == d), z[:, d - 1], mlen)
+    del z
 
     # tail safety: bytes past n are padding
     mlen = torch.minimum(mlen, n - pos)
     mlen = torch.where(ok & (mlen >= C.MIN_MATCH_LENGTH), mlen, 0)
     return mlen.int(), torch.where(mlen > 0, dist, 0).int()
+
+
+def find_matches(data: torch.Tensor, n: int):
+    """Per-position best matches for one segment (``find_matches_batch``
+    with one row).  data: uint8[S + 320]; n: valid byte count."""
+    mlen, dist = find_matches_batch(
+        data[None], torch.tensor([n], dtype=torch.int64, device=data.device))
+    return mlen[0], dist[0]
 
 
 def extend_matches_xla(data: torch.Tensor, mlen: torch.Tensor,

@@ -10,9 +10,15 @@ of 65535 bytes, the first ``ctx`` bytes context only) goes through
 
 with the same wire-level choices as the JAX version, so both emit the
 same bytes.  The tensor's device picks the route: CUDA tensors launch
-the kernels, CPU tensors take their plain twins.  The per-block policy
-is a short loop over the blocks on the host (one copy of nb sizes per
-segment).  Bit work on u32 values is done in int64 masked to 32 bits.
+the kernels, CPU tensors take their plain twins.  Every stage takes a
+leading segment axis.  ``encode_segments`` runs the matcher, the unit
+assembly and the one-segment pack kernel once per segment around one
+walk launch; ``encode_segments_batched`` runs every stage once for all
+B segments and packs them with one launch of the batched pack kernel, and
+``compact_streams`` joins the B byte-aligned streams on the device.
+The per-block policy is a loop over the nb blocks on the host, on
+vectors of B (one copy of B * nb sizes per call).  Bit work on u32
+values is done in int64 masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ from . import tables as T
 from .dense import hist_rows, take_rows
 from .header import SEQ_LEN, codegen_emissions
 from .huffman_torch import build_codes
-from .matcher import _u32_to_i32, find_matches
-from .pack import pack_units_dense
+from .matcher import _u32_to_i32, find_matches_batch
+from .pack import pack_units_dense, pack_units_dense_batch
 from .walk import commit_walk as _commit_walk_batch
 
 BLOCK = C.MAX_STORE_BLOCK_SIZE          # 65535
@@ -41,17 +47,28 @@ def n_words_for(nb: int) -> int:
     return (8 * nb * BLOCK + nb * 64 + 64) // 32 + 2
 
 
-def _find_clip(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
-    """Stage 1a: candidate matches of one segment, clipped at the
-    65535-byte block boundaries so token groups equal byte ranges."""
+def _find_clip_batch(data_padded: torch.Tensor, n: torch.Tensor,
+                     ctx: torch.Tensor, nb: int):
+    """Stage 1a: candidate matches of B segments, clipped at the
+    65535-byte block boundaries so token groups equal byte ranges.
+    data_padded: uint8[B, S + 320]; n, ctx: int32[B] on its device."""
     S = nb * BLOCK
     pos = torch.arange(S, dtype=torch.int32, device=data_padded.device)
+    ctx = ctx[:, None]
     blk_orig = torch.clamp(pos - ctx, 0, S - 1) // BLOCK
-    mlen, dist = find_matches(data_padded, n)
+    mlen, dist = find_matches_batch(data_padded, n)
     block_end = ctx + (blk_orig + 1) * BLOCK
     mlen = torch.minimum(mlen, block_end - pos)
     mlen = torch.where(mlen >= C.MIN_MATCH_LENGTH, mlen, 0)
     return mlen, dist
+
+
+def _find_clip(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
+    """Stage 1a of one segment (``_find_clip_batch`` with one row)."""
+    n_ctx = torch.tensor([[n], [ctx]], dtype=torch.int32,
+                         device=data_padded.device)
+    mlen, dist = _find_clip_batch(data_padded[None], n_ctx[0], n_ctx[1], nb)
+    return mlen[0], dist[0]
 
 
 def encode_segment_ctx(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
@@ -72,6 +89,13 @@ def encode_segment(data_padded: torch.Tensor, n: int, nb: int):
     return encode_segment_ctx(data_padded, n, 0, nb)
 
 
+def _segment_args(data_padded: torch.Tensor, n, ctx, nb: int):
+    """Check the buffer's width; n and ctx as lists of ints."""
+    if data_padded.shape[1] != nb * BLOCK + PAD:
+        raise ValueError(f"segment buffer must be {nb * BLOCK + PAD} bytes")
+    return [int(x) for x in n], [int(x) for x in ctx]
+
+
 def encode_segments(data_padded: torch.Tensor, n, ctx, nb: int):
     """Encode B independent segments: the matcher per segment, ONE walk
     launch for all of them, then units and packing per segment.
@@ -79,11 +103,7 @@ def encode_segments(data_padded: torch.Tensor, n, ctx, nb: int):
     data_padded: uint8[B, nb*65535 + 320]; n, ctx: B ints.
     Returns (words int32[B, W], total_bits int32[B]).
     """
-    S = nb * BLOCK
-    if data_padded.shape[1] != S + PAD:
-        raise ValueError(f"segment buffer must be {S + PAD} bytes")
-    n = [int(x) for x in n]
-    ctx = [int(x) for x in ctx]
+    n, ctx = _segment_args(data_padded, n, ctx, nb)
     clipped = [_find_clip(d, nn, cc, nb) for d, nn, cc in zip(data_padded, n, ctx)]
     mlen = torch.stack([m for m, _ in clipped])
     dist = torch.stack([d for _, d in clipped])
@@ -94,35 +114,92 @@ def encode_segments(data_padded: torch.Tensor, n, ctx, nb: int):
         data_padded, mlen, dist, n, ctx, nb)
     n_words = n_words_for(nb)
     words, bits = [], []
-    for b in range(data_padded.shape[0]):
-        vals, wids = _tokens_to_units(data_padded[b], n[b], ctx[b],
-                                      committed[b], is_match[b], mlen[b],
-                                      dist[b], nb)
-        w, t = pack_units_dense(vals, wids, n_words)
+    for r in (slice(b, b + 1) for b in range(len(n))):
+        vals, wids = _tokens_to_units(data_padded[r], n[r], ctx[r],
+                                      committed[r], is_match[r], mlen[r],
+                                      dist[r], nb)
+        w, t = pack_units_dense(vals[0], wids[0], n_words)
         words.append(w)
         bits.append(t)
     return torch.stack(words), torch.stack(bits)
 
 
-def _tokens_to_units(data_padded: torch.Tensor, n: int, ctx: int,
+def encode_segments_batched(data_padded: torch.Tensor, n, ctx, nb: int):
+    """Encode B independent segments with every stage batched over B:
+    one matcher pass ([B * windows, 65536] sorts), one walk launch, one
+    unit assembly on [B * nb] block rows and one launch of the batched
+    pack.  Same arguments, results and bytes as ``encode_segments``.
+    """
+    n, ctx = _segment_args(data_padded, n, ctx, nb)
+    n_ctx = torch.tensor([n, ctx], dtype=torch.int32, device=data_padded.device)
+    mlen, dist = _find_clip_batch(data_padded, n_ctx[0], n_ctx[1], nb)
+    committed, is_match, mlen, dist = _commit_walk_batch(
+        data_padded, mlen, dist, n, ctx, nb)
+    vals, wids = _tokens_to_units(data_padded, n, ctx, committed, is_match,
+                                  mlen, dist, nb)
+    del committed, is_match, mlen, dist
+    return pack_units_dense_batch(vals, wids, n_words_for(nb))
+
+
+def compact_streams(words: torch.Tensor, bits: torch.Tensor):
+    """Concatenate B byte-aligned segment streams on the device.
+
+    words: int32[B, W] stream words, zero past each segment's end;
+    bits: int32[B] bit counts (multiples of 8).  Returns (stream
+    int32[B*W + 1] holding the u32 patterns: row b's first bits[b] // 8
+    bytes at the exclusive prefix sum of the sizes, zero elsewhere;
+    total_bytes int32 scalar tensor).  The copy to the host is then
+    proportional to the compressed size.  The JAX version shifts whole
+    rows word-wise; here every byte of the rows is scattered to its
+    place through a byte view, which gives the same array.
+    """
+    B, W = words.shape
+    dev = words.device
+    sizes = (bits // 8).long()
+    csum = torch.cumsum(sizes, 0)
+    col = torch.arange(4 * W, dtype=torch.int64, device=dev)
+    keep = col[None, :] < sizes[:, None]
+    # bytes past a row's size go, as zeros, to a slot no row reaches
+    dest = torch.where(keep, (csum - sizes)[:, None] + col[None, :], 4 * B * W)
+    src = torch.where(keep, words.contiguous().view(torch.uint8), 0)
+    out = torch.zeros(4 * (B * W + 1), dtype=torch.uint8, device=dev)
+    out.scatter_(0, dest.reshape(-1), src.reshape(-1))
+    return out.view(torch.int32), csum[-1].int()
+
+
+def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
                      committed: torch.Tensor, is_match: torch.Tensor,
                      mlen: torch.Tensor, dist: torch.Tensor, nb: int):
-    """Stages 2-7 of one segment: committed tokens -> flat (value,
-    width) unit arrays, int32[nb*(339 + 65535 + 1) + 4] each."""
+    """Stages 2-7 of B segments: committed tokens -> (value, width)
+    unit arrays, int32[B, nb*(339 + 65535 + 1) + 4] each.  n, ctx: B
+    ints; the tensors carry a leading axis of B.  All per-block work
+    runs on the B * nb block rows at once."""
     S = nb * BLOCK
+    B = data_padded.shape[0]
+    R = B * nb
     dev = data_padded.device
     xlen = torch.where(is_match, mlen - 3, 0)
     xoff = torch.where(is_match, dist - 1, 0)
     lc = T.length_code(torch.clamp(xlen, 0, 255))
     dc = T.offset_code(xoff)
-    data = data_padded[:S].int()
+    data = data_padded[:, :S].int()
     sym = torch.where(is_match, 257 + lc, data)
 
-    # ---- roll to block-aligned payload layout [nb, BLOCK] ------------------
-    def blkify(a):
-        return (torch.roll(a, -ctx, 0) if ctx else a).reshape(nb, BLOCK)
+    # ---- roll each row to its block-aligned payload layout [R, BLOCK] ------
+    payload = np.asarray(n, np.int64) - np.asarray(ctx, np.int64)
+    pos = torch.arange(S, device=dev)
+    if any(ctx):
+        ctx_t = torch.tensor(ctx, dtype=torch.int64, device=dev)
+        src = (pos[None, :] + ctx_t[:, None]) % S
 
-    valid = (torch.arange(S, device=dev) < n - ctx).reshape(nb, BLOCK)
+        def blkify(a):
+            return torch.gather(a, 1, src).reshape(R, BLOCK)
+    else:
+        def blkify(a):
+            return a.reshape(R, BLOCK)
+
+    valid = (pos[None, :] < torch.as_tensor(payload, device=dev)[:, None]
+             ).reshape(R, BLOCK)
     committed_b = blkify(committed) & valid
     is_match_b = blkify(is_match) & valid
     sym_b = blkify(sym)
@@ -131,10 +208,11 @@ def _tokens_to_units(data_padded: torch.Tensor, n: int, ctx: int,
     xlen_b = blkify(xlen)
     xoff_b = blkify(xoff)
     data_b = blkify(data)
+    del xlen, xoff, lc, dc, data, sym
 
-    # per-block byte counts (host ints)
-    n_b_list = [min(max(n - ctx - k * BLOCK, 0), BLOCK) for k in range(nb)]
-    n_b = torch.tensor(n_b_list, dtype=torch.int32, device=dev)
+    # per-block byte counts, on the host [B, nb] and on the device [R]
+    n_b_host = np.clip(payload[:, None] - np.arange(nb) * BLOCK, 0, BLOCK)
+    n_b = torch.as_tensor(n_b_host.reshape(R), dtype=torch.int32, device=dev)
     live_b = n_b > 0
 
     # ---- histograms ----------------------------------------------------------
@@ -157,12 +235,12 @@ def _tokens_to_units(data_padded: torch.Tensor, n: int, ctx: int,
     both_freq = torch.cat(
         [lit_freq, torch.nn.functional.pad(off_freq, (0, 286 - 30))], dim=0)
     both_codes, both_lens = build_codes(both_freq, C.LIT_LEN_MAX_BITS)
-    lit_codes, lit_lens = both_codes[:nb], both_lens[:nb]
-    off_codes, off_lens = both_codes[nb:, :30], both_lens[nb:, :30]
+    lit_codes, lit_lens = both_codes[:R], both_lens[:R]
+    off_codes, off_lens = both_codes[R:, :30], both_lens[R:, :30]
 
     # ---- codegen RLE + header sizes -----------------------------------------
     jpos = torch.arange(SEQ_LEN, dtype=torch.int32, device=dev)
-    lit_part = take_rows(lit_lens, torch.clamp(jpos, 0, 285)[None, :].expand(nb, -1))
+    lit_part = take_rows(lit_lens, torch.clamp(jpos, 0, 285)[None, :].expand(R, -1))
     off_part = take_rows(off_lens, torch.clamp(jpos[None, :] - nl_b[:, None], 0, 29))
     seq = torch.where(jpos[None, :] < nl_b[:, None], lit_part, off_part)
     cg_sym, cg_pv, cg_pw, cg_freq = codegen_emissions(seq, nl_b + no_b)
@@ -182,19 +260,22 @@ def _tokens_to_units(data_padded: torch.Tensor, n: int, ctx: int,
                 + (off_freq * off_lens).sum(1) + extra_l + extra_o)
 
     # ---- per-block policy (dynamic vs stored), carrying bit alignment ------
-    bitpos8 = 0
-    use_stored, pad_list = [], []
-    for dyn, nbytes in zip(dyn_bits.tolist(), n_b_list):
-        live = nbytes > 0
+    # the carry runs over the nb blocks of a segment; segments are
+    # independent, so each step works on vectors of B
+    dyn_host = dyn_bits.reshape(B, nb).cpu().numpy().astype(np.int64)
+    bitpos8 = np.zeros(B, np.int64)
+    use_stored = np.zeros((B, nb), bool)
+    pad_host = np.zeros((B, nb), np.int32)
+    for k in range(nb):
+        live = n_b_host[:, k] > 0
         pad = (8 - ((bitpos8 + 3) % 8)) % 8
-        stored = 3 + pad + 32 + 8 * nbytes
-        st = live and stored < dyn
-        chosen = (stored if st else dyn) if live else 0
-        bitpos8 = (bitpos8 + chosen) % 8
-        use_stored.append(st)
-        pad_list.append(pad)
-    st = torch.tensor(use_stored, dtype=torch.bool, device=dev)
-    pad_b = torch.tensor(pad_list, dtype=torch.int32, device=dev)
+        stored = 3 + pad + 32 + 8 * n_b_host[:, k]
+        use_stored[:, k] = live & (stored < dyn_host[:, k])
+        chosen = np.where(use_stored[:, k], stored, dyn_host[:, k])
+        bitpos8 = (bitpos8 + np.where(live, chosen, 0)) % 8
+        pad_host[:, k] = pad
+    st = torch.as_tensor(use_stored.reshape(R), device=dev)
+    pad_b = torch.as_tensor(pad_host.reshape(R), device=dev)
 
     # ---- unit assembly ---------------------------------------------------------
     live_i = live_b.int()
@@ -272,15 +353,18 @@ def _tokens_to_units(data_padded: torch.Tensor, n: int, ctx: int,
     eob_v = torch.where(dyn_sel, lit_codes[:, C.END_BLOCK_MARKER], 0)[:, None]
     eob_w = torch.where(dyn_sel, lit_lens[:, C.END_BLOCK_MARKER], 0)[:, None]
 
-    flat_vals = torch.cat([hdr_vals, tok_vals.int(), eob_v.int()], dim=1).reshape(-1)
-    flat_wids = torch.cat([hdr_wids, tok_wids.int(), eob_w.int()], dim=1).reshape(-1)
+    flat_vals = torch.cat([hdr_vals, tok_vals.int(), eob_v.int()], dim=1).reshape(B, -1)
+    flat_wids = torch.cat([hdr_wids, tok_wids.int(), eob_w.int()], dim=1).reshape(B, -1)
 
     # ---- segment trailer: an empty stored block realigns a segment that
     # would end mid-byte --------------------------------------------------------
-    body_bits = int(flat_wids.sum())
+    body_bits = flat_wids.sum(1)
     t_pad = (8 - ((body_bits + 3) % 8)) % 8
-    trailer_vals = torch.tensor([0, 0, 0, 0xFFFF], dtype=torch.int32, device=dev)
-    trailer_wids = torch.tensor([3, t_pad, 16, 16] if body_bits % 8 else [0] * 4,
-                                dtype=torch.int32, device=dev)
-    return (torch.cat([flat_vals, trailer_vals]),
-            torch.cat([flat_wids, trailer_wids]))
+    trailer_vals = torch.tensor([0, 0, 0, 0xFFFF], dtype=torch.int32,
+                                device=dev).expand(B, 4)
+    trailer_wids = torch.stack(
+        [torch.full_like(t_pad, 3), t_pad, torch.full_like(t_pad, 16),
+         torch.full_like(t_pad, 16)], dim=1)
+    trailer_wids = torch.where((body_bits % 8 != 0)[:, None], trailer_wids, 0).int()
+    return (torch.cat([flat_vals, trailer_vals], dim=1),
+            torch.cat([flat_wids, trailer_wids], dim=1))

@@ -105,6 +105,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "moonbit_flate_tpu_torch.ops.resolve, "
         "moonbit_flate_tpu_torch.inflate.cuda_inflate, "
         "moonbit_flate_tpu_torch.utils.stream_cases\n"
+        "import moonbit_flate_tpu_torch.parallel.sharded\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')]\n"
         "assert not bad, bad\n"
@@ -117,8 +118,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
-    from moonbit_flate_tpu_torch import (compress, decompress, decompress_segments,
-                                         decompress_shards)
+    from moonbit_flate_tpu_torch import (ShardManifest, compress,
+                                         compress_with_manifest, decompress,
+                                         decompress_segments, decompress_shards,
+                                         decompress_with_manifest)
     from moonbit_flate_tpu_torch.api.cuda import CUDACompressor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,4 +135,10 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
         decompress_segments([b"\x03\x00"], [0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decompress(b"\x03\x00")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compress_with_manifest(b"abc")
+    for payload_size in (1, 5000):         # the lane route, the scalar route
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            decompress_with_manifest(b"\x03\x00",
+                                     ShardManifest([2], [payload_size], 1))
     assert CUDACompressor(device="cpu").device.type == "cpu"
