@@ -7,7 +7,10 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
 3. encode: holds the walk and pack kernels against their plain PyTorch
    twins on the same CUDA tensors at the main path's shapes (exact
-   equality: the codec is integer-only); drives the encode main path,
+   equality: the codec is integer-only), the walk also on rows with a
+   context deep in the segment and data that ends early, and on batches
+   of 2- and 1-block segments; times the walk's four kernels one by one;
+   drives the encode main path,
    ``CUDACompressor(blocks_per_segment=16)`` over a 16 MiB mixed corpus,
    checks it round-trips through zlib and that both kernels were
    launched there; then a preset-dictionary case, a halo case, and the
@@ -27,8 +30,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    on every stream that parsed to the end, against its twin at full
    size; drives the scalar main path, ``decompress_segments`` over the
    64 streams (64 MiB decoded), checks the bytes against the corpus and
-   that both kernels were launched there; then the port's own encoder
-   output, ``decompress`` with the host and the device parser, a preset
+   that both kernels were launched there; times the parser on each
+   stream alone and on one segment coded three ways; then the port's own
+   encoder output, ``decompress`` with the host and the device parser, a preset
    dictionary, and the exceptions of a truncated and a corrupt stream;
    times it all;
 6. manifest: holds the batched pack kernel against its twin and, row by
@@ -120,42 +124,61 @@ def max_abs_err(got, want):
     return err
 
 
-def profile_main_path(label, fn):
+def profile_main_path(label, fn, warm=None):
     """Where the time of one main-path call goes: wall time, summed
-    device time of its kernels, the device's idle share, and the
-    kernels and operators that take most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    device time of its kernels and copies, the device's idle share, and
+    the kernels and operators that take most device and host time.
+    ``warm`` is a cheaper call of the same path to warm the tracer up
+    with (by default fn itself)."""
+    from collections import defaultdict
 
-    # a first profiled call warms the tracer up: without it the events of
-    # the first part of the call can go missing
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        fn()
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    # one trace, two calls: the first warms the tracer up
+    # (without it the events of the first part of a call can go missing),
+    # the second runs inside a named range and only what starts in that
+    # range is read.  Now and then the tracer hands back no device event
+    # at all for the range: then the trace is taken again, three times at
+    # the most.
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (warm or fn)()
+            torch.cuda.synchronize()
+            with record_function("measured_call"):
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.time() - t0) * 1e3
+        events = prof.events()
+        span = next(e.time_range for e in events
+                    if e.key == "measured_call" and e.device_type == cpu)
+        on_device, on_host = defaultdict(lambda: [0.0, 0]), defaultdict(lambda: [0.0, 0])
+        for e in events:
+            if e.key == "measured_call" or not span.start <= e.time_range.start <= span.end:
+                continue
+            if e.device_type == cuda:
+                on_device[e.key][0] += e.self_device_time_total
+                on_device[e.key][1] += 1
+            else:
+                on_host[e.key][0] += e.self_cpu_time_total
+                on_host[e.key][1] += 1
+        busy_ms = sum(t for t, _ in on_device.values()) / 1e3
+        if busy_ms > 0:
+            break
+    else:
         print(f"profile {label}: wall {wall_ms:.1f} ms, device time not measured")
         return
-    host_calls = {k: sum(e.count for e in events if k in e.key)
+    host_calls = {k: sum(c for name, (_, c) in on_host.items() if k in name)
                   for k in ("cudaLaunchKernel", "Synchronize")}
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{host_calls['cudaLaunchKernel']} cudaLaunchKernel calls, "
           f"{host_calls['Synchronize']} synchronizing calls")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
-              f"{e.key[:90]}")
-    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]:
-        print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} "
-              f"{e.key[:90]}")
+    for name, (t, c) in sorted(on_device.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  kernel {t / 1e3:9.3f} ms x{c:<5d} {name[:90]}")
+    for name, (t, c) in sorted(on_host.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  host   {t / 1e3:9.3f} ms x{c:<5d} {name[:90]}")
 
 
 def bound(nbytes, ops):
@@ -205,6 +228,36 @@ def encode_phase(dev):
     matched_bytes = int(mlen2.long().sum())
     print(f"walk: {len(staged)} segments equal to the twin "
           f"({matches} matches, {matched_bytes} matched bytes)", flush=True)
+
+    # more walks against the twin: a context that ends in a later tile with
+    # data that ends inside one, a short segment, a context of one whole
+    # block, an empty row; then batches of 2- and 1-block segments (a
+    # ragged last tile, rows that start at odd addresses)
+    extra = [(nb, [(corpus[:100_000], corpus[100_000:600_000]),
+                   (b"", corpus[5 * S: 5 * S + 12_345]),
+                   (corpus[S: S + 65_535], corpus[S + 65_535: 2 * S - 7]),
+                   (b"", b"")]),
+             (2, [(b"", corpus[2 * S: 2 * S + 131_070]),
+                  (corpus[3 * S: 3 * S + 32_768], corpus[3 * S + 32_768: 3 * S + 90_001]),
+                  (b"", b"z" * 131_000)]),
+             (1, [(b"", corpus[4 * S: 4 * S + 65_535]),
+                  (corpus[:1000], corpus[1000:40_000])])]
+    for xnb, rows in extra:
+        xs = [stage_segment(c, pl, xnb) for c, pl in rows]
+        xdata = torch.from_numpy(np.stack([x[0] for x in xs])).to(dev)
+        xn, xctx = [x[1] for x in xs], [x[2] for x in xs]
+        xclip = [pipeline._find_clip(xdata[b], xn[b], xctx[b], xnb) for b in range(len(xs))]
+        xargs = (xdata, torch.stack([m for m, _ in xclip]),
+                 torch.stack([d for _, d in xclip]), xn, xctx, xnb)
+        xgot = walk.commit_walk(*xargs)
+        err = max_abs_err(xgot, walk.commit_walk_ref(*xargs))
+        if err:
+            raise AssertionError(f"walk kernel differs from its twin at nb = {xnb}, "
+                                 f"n = {xn}, ctx = {xctx}: {err}")
+        walk_err = max(walk_err, err)
+        print(f"walk: nb = {xnb}, n = {xn}, ctx = {xctx} equal to the twin "
+              f"({int(xgot[1].sum())} matches)", flush=True)
+    del xdata, xclip, xargs, xgot
 
     vals, wids = (t[0] for t in pipeline._tokens_to_units(
         data[:1], ns[:1], ctxs[:1], committed[:1], is_match[:1], mlen2[:1],
@@ -275,14 +328,27 @@ def encode_phase(dev):
     profile_main_path("encode", lambda: comp.compress(corpus))
 
     B = data.shape[0]
-    S_pad = -(-S // 32) * 32
-    walk_ms = cuda_ms(lambda: walk.commit_walk(*walk_args), 3)
+    walk_ms = cuda_ms(lambda: walk.commit_walk(*walk_args), 5)
     walk_plain_ms = cuda_ms(lambda: walk.commit_walk_ref(*walk_args), 1)
-    # bytes: staged data, minfo and bitmask in, minfo out; operations:
-    # a few per bitmask word scanned and per committed match, two per
+    # the four kernels of one call, each alone on the arrays a whole call
+    # has filled
+    as_t = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+    n_t, ctx_t = as_t(ns), as_t(ctxs)
+    scratch, outs = walk._scratch(B, S, dev), walk._outputs(B, S, dev)
+    parts = [cuda_ms(lambda: walk._launch(data, mlen, dist, ctx_t, n_t, scratch, outs,
+                                          phase), 5) for phase in (walk.ALL_PHASES, 1, 2, 4, 8)]
+    if max_abs_err(outs, got):
+        raise AssertionError("walk kernels run one by one differ from one call")
+    print("walk parts ({} segments): all four {:.4f} ms; extend {:.4f} ms, tile exits "
+          "{:.4f} ms, stitch {:.4f} ms, mark {:.4f} ms".format(B, *parts), flush=True)
+    del scratch, outs
+    # bytes: what the function takes and returns, each once: the staged
+    # data, mlen and dist in; committed, match_start, the final lengths
+    # and distances out (19 B a position).  Operations: up to 13 doubling
+    # rounds a position in each of two passes, 40 a committed match, two a
     # byte compared in extension (integer work on the CUDA cores)
-    walk_bytes = B * (S + 320) + B * S_pad * 4 + B * S_pad // 8 + B * S_pad * 4
-    walk_ops = 4 * B * S_pad // 32 + 40 * matches + 2 * matched_bytes
+    walk_bytes = B * (S + 320) + B * S * (4 + 4) + B * S * (1 + 1 + 4 + 4)
+    walk_ops = 2 * 13 * 3 * B * S + 40 * matches + 2 * matched_bytes
     pv, pw = pack_cases[0]
     pack_ms = cuda_ms(lambda: pack.pack_units_dense(pv, pw, n_words), 20)
     pack_plain_ms = cuda_ms(lambda: pack.pack_units_ref(pv, pw, n_words), 5)
@@ -624,11 +690,36 @@ def scalar_decode_phase(dev):
 
     toks, cnt = P.parse_batch(nb, w, n_chunks)
     ntok = cnt[:, 0].contiguous()
-    parse_ms = cuda_ms(lambda: P.parse_batch(nb, w, n_chunks), 3)
+    parse_ms = cuda_ms(lambda: P.parse_batch(nb, w, n_chunks), 5)
+    # the same launch on empty streams: what zeroing the token rows costs
+    nb_empty = torch.zeros_like(nb)
+    parse_fill_ms = cuda_ms(lambda: P.parse_batch(nb_empty, w, n_chunks), 5)
     resolve_ms = cuda_ms(lambda: R.resolve_batch(toks, ntok, nt_pad, no_pad), 5)
     resolve_plain_ms = cuda_ms(
         lambda: [R.resolve_batch_ref(toks[lo:lo + 32], ntok[lo:lo + 32], nt_pad, no_pad)
                  for lo in range(0, N_SEGS, 32)], 1)
+    # where the parser's time goes: a launch is as slow as its slowest
+    # stream, so each stream alone, and one segment coded three ways (zlib
+    # level 6; literals only; stored, which the warp expands together)
+    alone = sorted(((cuda_ms(lambda: P.parse_batch(nb[i:i + 1], w[i:i + 1], n_chunks), 2),
+                     i) for i in range(N_SEGS)), reverse=True)
+    row_tokens, row_matches = ntok.tolist(), (toks < 0).sum(1).tolist()
+    print("parse alone, slowest streams: " + ", ".join(
+        f"#{i} {ms:.3f} ms ({row_tokens[i]} tokens, {row_matches[i]} matches)"
+        for ms, i in alone[:4]) + f"; fastest #{alone[-1][1]} {alone[-1][0]:.3f} ms",
+        flush=True)
+    huff = zlib.compressobj(6, zlib.DEFLATED, -15, 8, zlib.Z_HUFFMAN_ONLY)
+    kinds = (("zlib level 6", zlib.compress(segs[0], 6)[2:-4]),
+             ("Huffman only", huff.compress(segs[0]) + huff.flush()),
+             ("stored", zlib.compress(segs[0], 0)[2:-4]))
+    for kind, stream in kinds:
+        nb1, w1 = P.stage_streams([stream])
+        n1, st1, _ = P.parse_batch(nb1, w1, n_chunks)[1][0].tolist()
+        if st1 != P.ST_DONE:
+            raise AssertionError(f"the {kind} stream did not parse to its end")
+        ms = cuda_ms(lambda: P.parse_batch(nb1, w1, n_chunks), 3)
+        print(f"parse of segment 0 as {kind}: {len(stream)} bytes, {n1} tokens, "
+              f"{ms:.4f} ms = {ms * 1e6 / n1:.1f} ns a token", flush=True)
     # bytes this run's data needs, each read or written once.  The parser
     # reads nbits and each stream's words up to its last bit, and writes
     # the whole token array and cnt.  The resolver reads ntok and each
@@ -642,7 +733,8 @@ def scalar_decode_phase(dev):
     parse_ops = 24 * (n_tok + n_match)
     resolve_bytes = 4 * (ntok.numel() + n_tok) + N_SEGS * no_pad
     resolve_ops = 4 * len(corpus) + 8 * n_tok
-    print(f"parse {parse_ms:.4f} ms ({N_SEGS} streams, {n_chunks} chunks), twin "
+    print(f"parse {parse_ms:.4f} ms ({N_SEGS} streams, {n_chunks} chunks; "
+          f"{parse_fill_ms:.4f} ms on empty streams, the zero fill alone), twin "
           f"{parse_plain_ms:.1f} ms (the {n_cases} case rows only); resolve {resolve_ms:.4f} ms, twin {resolve_plain_ms:.1f} ms "
           f"({N_SEGS} streams, two calls of 32); {n_tok} tokens, {n_match} matches; "
           f"bound bytes: parse {parse_bytes} ({in_words} input words), resolve "
@@ -798,7 +890,8 @@ def manifest_phase(dev):
           f"= {mb / dec_s:.2f} MB/s, all for {len(corpus)} bytes", flush=True)
     profile_main_path("manifest encode (batched)",
                       lambda: compress_with_manifest(corpus, nb))
-    profile_main_path("encode loop, same corpus", lambda: comp.compress(corpus))
+    profile_main_path("encode loop, same corpus", lambda: comp.compress(corpus),
+                      warm=lambda: comp.compress(corpus[:2 * S]))
 
     batch_ms = cuda_ms(lambda: pack.pack_units_dense_batch(vals, wids, n_words), 20)
     rows_ms = cuda_ms(lambda: [pack.pack_units_dense(vals[b], wids[b], n_words)

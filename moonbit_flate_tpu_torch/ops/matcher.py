@@ -203,7 +203,10 @@ def extend_matches_xla(data: torch.Tensor, mlen: torch.Tensor,
 
 def pack_match_info(mlen: torch.Tensor, dist: torch.Tensor,
                     ctx: torch.Tensor, S_pad: int):
-    """Pack matcher output for the greedy walk, batched over segments.
+    """Pack matcher output the way the TPU walk takes it, batched over
+    segments (the port of the JAX ``pack_match_info``, held against it in
+    the tests; ``csrc/walk.cu`` reads mlen and dist as they are, so
+    nothing on the port's paths calls this).
 
     mlen, dist: int32[B, S]; ctx: int32[B].  Returns
     (minfo int32[B, S_pad] = dist << 9 | mlen at match starts,

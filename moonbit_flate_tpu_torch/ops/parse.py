@@ -19,8 +19,19 @@ stream read as 0; each code must be empty, complete, or one code of
 length 1.  One loop iteration emits at most one token and headers emit
 none; the token array is 0 past each stream's tokens.
 
-``parse_batch`` launches ``csrc/parse.cu`` (one warp per stream with one
-parsing lane, all streams in one launch) for CUDA tensors;
+``parse_batch`` launches ``csrc/parse.cu`` for CUDA tensors, which
+replaces the Pallas kernel ``parse_pallas.py:parse_batch``: one block a
+stream, all streams in one launch.  A stream is one chain of dependent
+steps, so what bounds the kernel on the H100 is the latency of the
+machine operations on one lane's chain, not bytes or arithmetic.  The
+design keeps that chain short: the warp moves the input through a ring in
+shared memory and the tokens through a staging array (the parsing lane
+touches no global memory), 32-bit table entries carry lengths, bases and
+extra-bit counts (two short literals in one entry), a fast loop without
+truncation checks runs while 48 bits remain and hands anything unusual,
+at the token's first bit, to the step-by-step logic that decides every
+status, the warp builds the tables together and expands stored blocks
+itself, and the block zero-fills the token row's tail.
 ``parse_batch_ref`` is the plain PyTorch twin, one loop iteration of
 every stream per step, and the wrapper takes it for CPU tensors only.
 Bit positions are int32: ``stage_streams`` refuses a stream of 2**28

@@ -143,6 +143,69 @@ def _dynamic_cases():
     ]
 
 
+def _long_code_cases():
+    """Literal/length and distance codes of every length 1..15, so that
+    codes longer than any root table are decoded (hit), and a one-code
+    literal table whose other bit has no code."""
+    lit = {97 + k: k + 1 for k in range(12)}          # 'a'..'l': 1..12 bits
+    lit.update({256: 13, 257: 14, 109: 15, 285: 15})  # end, length 3, 'm', length 258
+    lens = _lit_lens(lit, 286)
+    dist_lens = list(range(1, 15)) + [15, 15]         # distance symbols 0..15
+    lit_codes, dist_codes = _canonical(lens), _canonical(dist_lens)
+
+    def stream(cut_bits=0):
+        w = _Bits()
+        _dynamic_header(w, lens, dist_lens)
+        for sym in list(range(97, 110)) + [97] * 300:
+            w.code(*lit_codes[sym])
+        for lsym, dsym, extra, ebits in ((257, 10, 5, 4),    # 14 + 11 bits, distance 38
+                                         (285, 15, 63, 6),   # 15 + 15 bits, distance 256
+                                         (257, 13, 0, 6),    # 14 + 14 bits, distance 129
+                                         (285, 0, 0, 0)):    # 15 + 1 bits, distance 1
+            w.code(*lit_codes[lsym])
+            w.code(*dist_codes[dsym])
+            w.put(extra, ebits)
+        for sym in (107, 108, 109, 256):
+            w.code(*lit_codes[sym])
+        return w.tobytes()[:(w.n - cut_bits + 7) // 8] if cut_bits else w.tobytes()
+
+    out = [("dyn_long_codes", stream(), 1),
+           # cut inside the last symbols: the 13-bit end-of-block code, then
+           # the 15-bit literal before it
+           ("dyn_long_codes_cut_in_end_of_block", stream(cut_bits=10), -4),
+           ("dyn_long_codes_cut_in_literal", stream(cut_bits=24), -4)]
+    # one literal/length code of 1 bit (end of block): bit 1 has no code
+    for name, bit, status in (("dyn_lit_single_code_bit0", 0, 1),
+                              ("dyn_lit_single_code_bit1", 1, -3)):
+        w = _Bits()
+        _dynamic_header(w, _lit_lens({256: 1}), (1,))
+        w.put(bit, 1)
+        out.append((name, w.tobytes(), status))
+    return out
+
+
+def _stored_boundary_cases():
+    """A stored block whose header and bytes straddle 4, 8 and 16 KB of
+    input, reached through empty stored blocks (5 bytes and no token
+    each), and a Huffman stream that ends within 48 bits of a long run
+    of tokens, whole and cut."""
+    rng = np.random.default_rng(23)
+    out = []
+    for kb in (4, 8, 16):
+        lead = (kb * 1024 - 3) // 5                   # ends 3 to 7 bytes short
+        body = rng.integers(0, 256, 100, np.uint8).tobytes()
+        out.append((f"stored_across_{kb}k",
+                    b"\x00\x00\x00\xff\xff" * lead + b"\x01\x64\x00\x9b\xff" + body, 1))
+    letters = np.frombuffer(b"etaoinshrdlucmfw .,", np.uint8)
+    run = _raw(bytes(rng.choice(letters, 3500)), 6, zlib.Z_HUFFMAN_ONLY)
+    out.append(("long_run_whole", run, 1))
+    out.append(("long_run_cut_1_byte", run[:-1], -4))
+    out.append(("long_run_cut_5_bytes", run[:-5], -4))
+    matches = _raw((b"a run of tokens and matches " * 150)[:3900], 9)
+    out.append(("long_matches_cut_2_bytes", matches[:-2], -4))
+    return out
+
+
 def _fixed(final=1):
     w = _Bits()
     w.put(final, 1)
@@ -274,6 +337,8 @@ def stream_cases():
     cases.append(("dyn_header_cut_in_lens", dyn[:30], -3))
     cases += _dynamic_cases()
     cases += _fixed_cases()
+    cases += _long_code_cases()
+    cases += _stored_boundary_cases()
     # more tokens than CASE_CAPACITY: stored bytes, and Huffman literals
     big = rng.integers(0, 256, CASE_CAPACITY + 900, np.uint8).tobytes()
     cases.append(("exhaust_stored", _raw(big, 0), 0))
