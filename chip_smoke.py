@@ -28,17 +28,19 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    mutants included), held against its twin on the case rows and against
    the host scanner's tokens on the 64 full-size rows; the resolve kernel
    on every stream that parsed to the end, against its twin at full
-   size; drives the scalar main path, ``decompress_segments`` over the
+   size, on the token cases and on two rows of long matches that cross
+   its windows; times the resolver in parts (rounds, each stream alone,
+   the zero fill); drives the scalar main path, ``decompress_segments`` over the
    64 streams (64 MiB decoded), checks the bytes against the corpus and
    that both kernels were launched there; times the parser on each
    stream alone and on one segment coded three ways; then the port's own
    encoder output, ``decompress`` with the host and the device parser, a preset
    dictionary, and the exceptions of a truncated and a corrupt stream;
    times it all;
-6. manifest: holds the batched pack kernel against its twin and, row by
-   row, against the one-segment pack kernel, on the units of 16 real
-   segments and on random units with an all-zero row and a row clipped
-   at n_words; drives the manifest main path,
+6. manifest: holds the batched pack kernels against their twin and,
+   row by row, against the one-segment pack kernel, on the units of 16
+   real segments and on random units with an all-zero row and a row
+   clipped at n_words, and times their two passes; drives the manifest main path,
    ``compress_with_manifest`` over the 64-shard corpus (4 waves of 16
    through ``encode_segments_batched`` and ``compact_streams``) and
    ``decompress_with_manifest`` back, checks the bytes, that stock zlib
@@ -603,14 +605,29 @@ def scalar_decode_phase(dev):
     resolve_err = max(resolve_err, max_abs_err(
         (R.resolve_batch(tt, tn, 1024, R.OUT_BYTES),),
         (R.resolve_batch_ref(tt, tn, 1024, R.OUT_BYTES),)))
+    # rows of long matches, whose rounds nearly all end in a match that
+    # runs past the window, one of them cut at no_pad
+    wrows = [SC.window_tokens(200_000, seed=s) for s in range(2)]
+    wt = np.zeros((2, -(-max(map(len, wrows)) // 1024) * 1024), np.int32)
+    for i, t in enumerate(wrows):
+        wt[i, :len(t)] = t
+    wt = torch.from_numpy(wt).to(dev)
+    wn = torch.tensor([len(t) for t in wrows], dtype=torch.int32, device=dev)
+    crossing = sum(e > R.WINDOW for t in wrows
+                   for _, _, _, e in R.round_bounds(torch.from_numpy(t), 204_800)[:-1])
+    for w_pad in (204_800, 196_608):
+        resolve_err = max(resolve_err, max_abs_err(
+            (R.resolve_batch(wt, wn, wt.shape[1], w_pad),),
+            (R.resolve_batch_ref(wt, wn, wt.shape[1], w_pad),)))
     if resolve_err:
         raise AssertionError(f"resolve kernel differs from its twin: {resolve_err}")
     got = out[:N_SEGS].cpu().numpy().view(np.uint8)[:, :SEG_BYTES]
     if got.tobytes() != corpus:
         raise AssertionError("resolve kernel output is not the corpus")
-    print(f"resolve: {len(done)} streams of {no_pad} bytes and {len(tcases)} token "
-          f"cases equal to the twin in {time.time() - t0:.1f} s", flush=True)
-    del cases, nbc, wc, toks, cnt, tk, nk, out, got, tt, tn
+    print(f"resolve: {len(done)} streams of {no_pad} bytes, {len(tcases)} token cases "
+          f"and 2 rows of long matches ({crossing} rounds end in a match across the "
+          f"window) equal to the twin in {time.time() - t0:.1f} s", flush=True)
+    del cases, nbc, wc, toks, cnt, tk, nk, out, got, tt, tn, wt, wn
 
     # ---- main path: counts from 0, one decode, counts read after ------------
     P.launches = 0
@@ -679,14 +696,15 @@ def scalar_decode_phase(dev):
     mark()
     n_out = cnt.cpu().numpy()[:, 2].tolist()
     mark()
-    out_h = out.cpu().numpy().view(np.uint8)
+    out_h = CI._output_to_host(out)
+    mark()
     if [out_h[i, :n].tobytes() for i, n in enumerate(n_out)] != dec:
         raise AssertionError("scalar decode in parts differs from decompress_segments")
     mark()
     parts = np.diff(marks) * 1e3
     print("scalar decode breakdown: staging {:.1f} ms, parse + resolve {:.1f} ms, "
-          "status readback {:.1f} ms, bytes to the host {:.1f} ms; total {:.1f} ms"
-          .format(*parts, parts.sum()), flush=True)
+          "status readback {:.1f} ms, copy to pinned host memory {:.1f} ms, split into "
+          "bytes {:.1f} ms; total {:.1f} ms".format(*parts, parts.sum()), flush=True)
 
     toks, cnt = P.parse_batch(nb, w, n_chunks)
     ntok = cnt[:, 0].contiguous()
@@ -695,6 +713,23 @@ def scalar_decode_phase(dev):
     nb_empty = torch.zeros_like(nb)
     parse_fill_ms = cuda_ms(lambda: P.parse_batch(nb_empty, w, n_chunks), 5)
     resolve_ms = cuda_ms(lambda: R.resolve_batch(toks, ntok, nt_pad, no_pad), 5)
+    # the resolver in parts: rounds a stream (one window each), each
+    # stream alone (a launch is as slow as its slowest stream), and the
+    # launch on empty streams, the zero fill alone
+    rounds = [len(R.round_bounds(toks[i, :n].cpu(), no_pad))
+              for i, n in enumerate(ntok.tolist())]
+    r_alone = sorted(((cuda_ms(lambda: R.resolve_batch(toks[i:i + 1], ntok[i:i + 1], nt_pad,
+                                                       no_pad), 3), i) for i in range(N_SEGS)),
+                     reverse=True)
+    no_tokens = torch.zeros_like(ntok)
+    r_fill_ms = cuda_ms(lambda: R.resolve_batch(toks, no_tokens, nt_pad, no_pad), 5)
+    slow_ms, slow = r_alone[0]
+    print(f"resolve parts: all {N_SEGS} streams {resolve_ms:.4f} ms; {min(rounds)}-"
+          f"{max(rounds)} rounds of a {R.WINDOW}-byte window a stream; slowest stream alone "
+          f"#{slow} {slow_ms:.4f} ms ({rounds[slow]} rounds, "
+          f"{slow_ms * 1e3 / rounds[slow]:.2f} us a round), second #{r_alone[1][1]} "
+          f"{r_alone[1][0]:.4f} ms, fastest #{r_alone[-1][1]} {r_alone[-1][0]:.4f} ms; "
+          f"zero tail alone (empty streams) {r_fill_ms:.4f} ms", flush=True)
     resolve_plain_ms = cuda_ms(
         lambda: [R.resolve_batch_ref(toks[lo:lo + 32], ntok[lo:lo + 32], nt_pad, no_pad)
                  for lo in range(0, N_SEGS, 32)], 1)
@@ -897,18 +932,24 @@ def manifest_phase(dev):
     rows_ms = cuda_ms(lambda: [pack.pack_units_dense(vals[b], wids[b], n_words)
                                for b in range(B)], 20)
     plain_ms = cuda_ms(lambda: pack.pack_units_batch_ref(vals, wids, n_words), 5)
-    # the wrapper's parts that run before the launch, timed alone
-    offsets_ms = cuda_ms(lambda: pack._offsets(wids), 20)
-    zero_ms = cuda_ms(lambda: torch.zeros(B, n_words, dtype=torch.int32, device=dev), 20)
+    # the C entry's two kernels one by one, on the wrapper's buffers, and
+    # a memset of the same words beside the zeroing that pass 1 does
+    bufs = pack._batch_buffers(B, NU, n_words, dev)
+    parts = [cuda_ms(lambda: pack._launch_batch(vals, wids, n_words, bufs, passes), 20)
+             for passes in (pack.ALL_PASSES, 1, 2)]
+    if max_abs_err(bufs[:2], pack.pack_units_dense_batch(vals, wids, n_words)):
+        raise AssertionError("pack_batch kernels run one by one differ from one call")
+    zero_ms = cuda_ms(lambda: bufs[0].zero_(), 20)
     # bytes: values and widths in, words and the totals out, each once;
-    # the int64 offsets are made and read inside the function and are not
-    # counted (16 B a unit more, written and read, if they were)
+    # the tile sums are made and read inside the function and are not
+    # counted (8 B a tile), nor the zeroed words written twice
     nbytes = B * (NU * 8 + n_words * 4 + 4)
-    print(f"pack_batch {batch_ms:.4f} ms for {B} x {NU} units in one launch; "
+    print(f"pack_batch {batch_ms:.4f} ms for {B} x {NU} units in one call; "
           f"{B} launches of pack on the same rows {rows_ms:.4f} ms; twin "
-          f"{plain_ms:.4f} ms; of the wrapper's time the row-wise int64 offsets "
-          f"take {offsets_ms:.4f} ms and zeroing the words {zero_ms:.4f} ms; "
-          f"bound bytes {nbytes}", flush=True)
+          f"{plain_ms:.4f} ms; pack_batch parts: both kernels {parts[0]:.4f} ms, tile "
+          f"sums and zeroing the words {parts[1]:.4f} ms, scan and place {parts[2]:.4f} "
+          f"ms; a memset of the same words {zero_ms:.4f} ms; bound bytes {nbytes}",
+          flush=True)
     return [kernel_entry("pack_batch", "moonbit_flate_tpu_torch/csrc/pack.cu",
                          "moonbit_flate_tpu/ops/pack.py:199",
                          launches["pack_batch"], err, batch_ms, plain_ms, nbytes,

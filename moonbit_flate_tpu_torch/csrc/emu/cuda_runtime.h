@@ -1,8 +1,10 @@
-// The subset of CUDA that walk.cu and parse.cu use, for a host compiler:
+// The subset of CUDA that the sources of csrc/ use, for a host compiler:
 // one OS thread a CUDA thread, the blocks of a launch one after another.
 // kernels/emulate.py puts this directory first on the include path, so a
-// kernel source's #include <cuda_runtime.h> finds this file, and rewrites
-// its launch statements into emu_launch calls.  It exists to test a
+// kernel source's #include <cuda_runtime.h> finds this file, rewrites its
+// launch statements into emu_launch calls, and its dynamic shared array
+// (extern __shared__ T name[];) into a pointer to emu_dynamic_shared, the
+// buffer emu_launch makes for the launch's blocks.  It exists to test a
 // kernel's logic on a machine without a card; it says nothing of speed
 // and cannot show a race that only real warps would run into.
 #pragma once
@@ -21,6 +23,7 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 
 using std::max;
 using std::min;
@@ -29,10 +32,22 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct uint4 { uint32_t x, y, z, w; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
+inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorInvalidConfiguration = 9;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// every launch gets the dynamic shared memory it asks for
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+
+// shared and global words alike: the host's atomic on plain memory
+inline unsigned atomicOr(unsigned* a, unsigned v) { return __atomic_fetch_or(a, v, __ATOMIC_RELAXED); }
 
 // A barrier of n threads that spins with yields, then naps: the threads
 // of a warp meet here every few steps, and sleeping on a condition
@@ -63,6 +78,7 @@ struct EmuWarp {
 struct EmuBlock {
   EmuBarrier bar;
   std::atomic<int> all{1};
+  std::atomic<int> any{0};
   std::vector<EmuWarp> warps;
 };
 
@@ -71,6 +87,7 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline thread_local EmuBlock* emu_block;
 inline thread_local EmuWarp* emu_warp;
 inline thread_local int emu_lane;
+inline unsigned char* emu_dynamic_shared;
 
 inline void __syncthreads() { emu_block->bar.wait(); }
 inline int __syncthreads_and(int pred) {
@@ -79,6 +96,15 @@ inline int __syncthreads_and(int pred) {
   const int r = emu_block->all.load();
   emu_block->bar.wait();
   if (threadIdx.x == 0) emu_block->all.store(1);
+  emu_block->bar.wait();
+  return r;
+}
+inline int __syncthreads_or(int pred) {
+  if (pred) emu_block->any.store(1);
+  emu_block->bar.wait();
+  const int r = emu_block->any.load();
+  emu_block->bar.wait();
+  if (threadIdx.x == 0) emu_block->any.store(0);
   emu_block->bar.wait();
   return r;
 }
@@ -95,6 +121,13 @@ inline T __shfl_sync(unsigned, T v, int src) {
   std::memcpy(&r, &y, sizeof(T));
   return r;
 }
+// lane i gets the value of lane i - d, or keeps its own below d
+template <class T>
+inline T __shfl_up_sync(unsigned m, T v, int d) {
+  return __shfl_sync(m, v, emu_lane >= d ? emu_lane - d : emu_lane);
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned m, T v, int x) { return __shfl_sync(m, v, emu_lane ^ x); }
 inline unsigned __ballot_sync(unsigned, int pred) {
   emu_warp->slot[emu_lane] = pred ? 1 : 0;
   emu_warp->bar.wait();
@@ -125,11 +158,14 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
 }
 
 // Runs fn once for every thread of every block.  The block's threads are
-// made once and take the blocks in order, a barrier between two blocks.
+// made once and take the blocks in order, a barrier between two blocks;
+// they share one buffer of `shared` bytes of dynamic shared memory.
 // Block sizes are multiples of 32 (every kernel here has such).
-inline void emu_launch(dim3 grid, dim3 block, const std::function<void()>& fn) {
+inline void emu_launch(dim3 grid, dim3 block, size_t shared, const std::function<void()>& fn) {
   blockDim = block;
   gridDim = grid;
+  std::vector<uint4> dynamic_shared((shared + 15) / 16);
+  emu_dynamic_shared = reinterpret_cast<unsigned char*>(dynamic_shared.data());
   const int nt = (int)(block.x * block.y * block.z);
   EmuBlock ctx;
   ctx.bar.n = nt;

@@ -104,6 +104,20 @@ def _parse_resolve(nbits, words, n_chunks):
     return resolve_batch(toks, cnt[:, 0].contiguous(), cap, cap), cnt
 
 
+def _output_to_host(out: torch.Tensor) -> np.ndarray:
+    """A sub-batch's output words as a host uint8 array.  From the card:
+    one non-blocking copy into a pinned buffer (PyTorch's caching host
+    allocator hands the same buffer back on the next call) and a wait
+    for the stream, which copies at the link's rate where a copy into
+    pageable memory goes through a staging buffer."""
+    if out.is_cuda:
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+        out = host
+    return out.numpy().view(np.uint8)
+
+
 def decompress_segments(streams: list[bytes], out_sizes: list[int],
                         device=None) -> list[bytes]:
     """Decode B independent raw-DEFLATE streams on the device: the parse
@@ -118,7 +132,7 @@ def decompress_segments(streams: list[bytes], out_sizes: list[int],
     Streams go in sub-batches so that the token array (4 B x capacity a
     stream) stays under ``_SUB_TOKEN_BYTES``: device memory bounds it on the card, the
     plain resolver's int64 temporaries on the CPU.  Statuses and bytes
-    come back once per sub-batch."""
+    come back once per sub-batch, the bytes through a pinned buffer."""
     if not streams:
         return []
     dev = resolve_device(device)
@@ -147,7 +161,7 @@ def decompress_segments(streams: list[bytes], out_sizes: list[int],
                 raise ValueError(
                     f"stream {i}: decompressed size {n_out} "
                     f"exceeds caller bound {out_sizes[i]}")
-        out_h = out.cpu().numpy().view(np.uint8)
+        out_h = _output_to_host(out)
         outs += [out_h[i, :n].tobytes() for i, n in enumerate(cnt_h[:, 2].tolist())]
     return outs
 

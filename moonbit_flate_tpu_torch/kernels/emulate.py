@@ -4,8 +4,10 @@ there is no card and no nvcc.
 ``csrc/emu/cuda_runtime.h`` stands in for the CUDA headers: one OS
 thread a CUDA thread, barriers and warp collectives on spinning
 counters, the blocks of a launch one after another.  ``entry`` rewrites
-a source's launch statements (``kernel<<<grid, block, 0, stream>>>(...)``)
-into calls of that header's ``emu_launch``, compiles the result with
+a source's launch statements (``kernel<<<grid, block, shared, stream>>>(...)``)
+into calls of that header's ``emu_launch`` and its dynamic shared array
+(``extern __shared__ T name[];``) into a pointer to the buffer
+``emu_launch`` makes, compiles the result with
 g++ into ``_build/`` and returns the same C entry point that
 ``build.entry`` gives on the card, to be called with the ``data_ptr()``
 of CPU tensors and no stream.  A source that uses inline PTX keeps a
@@ -33,6 +35,7 @@ CXX_FLAGS = ["-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
              "-Wno-unknown-pragmas"]
 
 _LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\s*\((.*?)\);", re.S)
+_DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];")
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -55,10 +58,14 @@ def _host_source(name: str) -> str:
         src = f.read()
 
     def launch(m):
-        grid, block = _split_args(m.group(2))[:2]
-        return (f"emu_launch(dim3({grid}), dim3({block}), "
+        config = _split_args(m.group(2))
+        grid, block = config[:2]
+        shared = config[2] if len(config) > 2 else "0"
+        return (f"emu_launch(dim3({grid}), dim3({block}), {shared}, "
                 f"[&] {{ {m.group(1)}({m.group(3)}); }});")
 
+    src = _DYNAMIC_SHARED.sub(
+        r"\1* \2 = reinterpret_cast<\1*>(emu_dynamic_shared);", src)
     return _LAUNCH.sub(launch, src)
 
 

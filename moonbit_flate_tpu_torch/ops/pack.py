@@ -14,11 +14,14 @@ the twin for CPU tensors only; for CUDA tensors it launches the kernel.
 
 ``pack_units_dense_batch`` replaces the Pallas kernel of
 ``moonbit_flate_tpu/ops/pack.py:pack_units_dense_batch``
-(``_make_place_kernel_batch``) with the second kernel of
-``csrc/pack.cu``: B independent packs in one launch on a 2-D grid, one
-grid row per segment, the offsets from one row-wise prefix sum.  Its
-twin ``pack_units_batch_ref`` is the port of the ``vmap`` of
-``pack_units``, and ``launches_batch`` counts its launches.
+(``_make_place_kernel_batch``) with the C entry ``pack_batch_launch``
+of ``csrc/pack.cu``: B independent packs, two CUDA kernels on a grid of
+(tiles of ``TILE_UNITS`` units, rows) that compute the bit offsets
+themselves in int32 (tile sums, then a scan inside each tile) and build
+each tile's words in shared memory.  Its twin ``pack_units_batch_ref``
+is the port of the ``vmap`` of ``pack_units``, and ``launches_batch``
+counts wrapper calls that launch, one a call whatever number of CUDA
+kernels the entry runs.
 """
 
 from __future__ import annotations
@@ -29,14 +32,18 @@ import torch
 
 from ..kernels import build
 
+TILE_UNITS = 4096   # units a tile of the batched kernels (kTileUnits)
+MAX_WIDTH = 28      # the widest unit
+ALL_PASSES = 3      # pack_batch_launch: 1 tile sums and zeroing, 2 scan and place
+
 launches = 0        # kernel launches made by pack_units_dense
-launches_batch = 0  # kernel launches made by pack_units_dense_batch
+launches_batch = 0  # calls of pack_units_dense_batch that launched its kernels
 
 # values, widths, offsets, words, nu, n_words, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-# values, widths, offsets, words, rows, nu, n_words, stream
-_ARGTYPES_BATCH = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p])
+# values, widths, words, bits, tile_sums, rows, nu, n_words, phases, stream
+_ARGTYPES_BATCH = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _offsets(widths: torch.Tensor):
@@ -107,11 +114,30 @@ def pack_units_batch_ref(values: torch.Tensor, widths: torch.Tensor,
     return torch.where(words >= (1 << 31), words - (1 << 32), words).int(), total
 
 
+def _batch_buffers(B: int, NU: int, n_words: int, device):
+    """Words int32[B, n_words], total bits int32[B] and the tile sums
+    int32[B, ntiles] that ``pack_batch_launch`` fills."""
+    ntiles = max(1, -(-NU // TILE_UNITS))
+    return tuple(torch.empty(shape, dtype=torch.int32, device=device)
+                 for shape in ((B, n_words), (B,), (B, ntiles)))
+
+
+def _launch_batch(values, widths, n_words, bufs, phases=ALL_PASSES):
+    """One checked call of ``pack_batch_launch`` on the wrapper's buffers."""
+    words, bits, sums = bufs
+    B, NU = values.shape
+    fn = build.entry("pack", "pack_batch_launch", _ARGTYPES_BATCH)
+    build.check(fn(values.data_ptr(), widths.data_ptr(), words.data_ptr(),
+                   bits.data_ptr(), sums.data_ptr(), B, NU, n_words, phases,
+                   torch.cuda.current_stream(values.device).cuda_stream),
+                "pack_batch")
+
+
 def pack_units_dense_batch(values: torch.Tensor, widths: torch.Tensor,
                            n_words: int):
-    """Same contract as ``pack_units_batch_ref``; one launch of the
-    batched kernel of ``csrc/pack.cu`` for CUDA tensors.  values,
-    widths: int32[B, NU] (widths 0..28)."""
+    """Same contract as ``pack_units_batch_ref``; one call of the batched
+    kernels of ``csrc/pack.cu`` for CUDA tensors.  values, widths:
+    int32[B, NU] (widths 0..28)."""
     if not values.is_cuda:
         return pack_units_batch_ref(values, widths, n_words)
     global launches_batch
@@ -119,15 +145,13 @@ def pack_units_dense_batch(values: torch.Tensor, widths: torch.Tensor,
             or values.shape != widths.shape or values.dim() != 2:
         raise ValueError("pack_units_dense_batch takes int32[B, NU] values "
                          "and widths")
+    B, NU = values.shape
+    if NU * MAX_WIDTH >= 1 << 31:
+        raise ValueError(f"pack_units_dense_batch: {NU} units a row may hold "
+                         f"2**31 bits or more; offsets are int32")
     values = values.contiguous()
     widths = widths.contiguous()
-    offsets, total = _offsets(widths)
-    B, NU = values.shape
-    words = torch.zeros(B, n_words, dtype=torch.int32, device=values.device)
-    fn = build.entry("pack", "pack_batch_launch", _ARGTYPES_BATCH)
-    build.check(fn(values.data_ptr(), widths.data_ptr(), offsets.data_ptr(),
-                   words.data_ptr(), B, NU, n_words,
-                   torch.cuda.current_stream(values.device).cuda_stream),
-                "pack_batch")
+    bufs = _batch_buffers(B, NU, n_words, values.device)
+    _launch_batch(values, widths, n_words, bufs)
     launches_batch += 1
-    return words, total
+    return bufs[0], bufs[1]

@@ -12,14 +12,18 @@ covering token from a scatter and a running maximum, and each byte's
 source literal by pointer doubling over the "i -> i - dist" jumps, with
 overlapping copies folded modulo the distance beforehand.
 
-``resolve_batch`` launches ``csrc/resolve.cu`` (one warp per stream, the
-stream's own output as its history) for CUDA tensors and returns
-little-endian int32 output words, zero past each stream's real output;
-``resolve_batch_ref`` is its plain twin, built on the pointer-doubling
-resolver, and the wrapper takes it for CPU tensors only.  A distance
-that reaches before the stream's start reads as 0 in both (the TPU
-kernel reads whatever its history window held; the parser rejects such
-a token, so it never arises on the decode path).
+``resolve_batch`` launches ``csrc/resolve.cu`` (one block a stream, in
+rounds over an output window of ``WINDOW`` bytes in shared memory, the
+stream's finished output in global memory as the history before it)
+for CUDA tensors and returns little-endian int32 output words, zero
+past each stream's real output; ``resolve_batch_ref`` is its plain
+twin, built on the pointer-doubling resolver, and the wrapper takes it
+for CPU tensors only.  ``resolve_rounds_ref`` follows the kernel's
+rounds with the window size as an argument, so that tests meet every
+window boundary at small sizes; nothing on the decode path calls it.  A
+distance that reaches before the stream's start reads as 0 in all three
+(the TPU kernel reads whatever its history window held; the parser
+rejects such a token, so it never arises on the decode path).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import torch
 from ..kernels import build
 
 OUT_BYTES = 8192            # output capacity quantum, bytes
+WINDOW = 16384              # csrc/resolve.cu's kWindow: bytes in which a round's tokens start
+MAX_MATCH = 258
 
 launches = 0  # kernel launches made by resolve_batch
 
@@ -118,6 +124,98 @@ def resolve_batch_ref(tokens: torch.Tensor, ntok: torch.Tensor, nt_pad: int,
     return out.view(torch.int32).reshape(B, no_pad // 4)
 
 
+def _fields(t: torch.Tensor):
+    """Output length, distance (0 for a literal) and output offset of each
+    token of one stream's int64 records."""
+    is_match = t < 0
+    length = torch.where(is_match, ((t >> 15) & 0xFF) + 3, 1)
+    dist = torch.where(is_match, (t & 0x7FFF) + 1, 0)
+    return length, dist, torch.cumsum(length, 0) - length
+
+
+def round_bounds(tokens: torch.Tensor, no_pad: int, window: int = WINDOW):
+    """Kernel f's rounds over one stream's live tokens (int32[n]): a list
+    of (w0, k0, k1, e), the window's first byte, the tokens [k0, k1) the
+    round takes and the end e of the cells it fills, relative to w0.
+
+    A round starts at the next token's output offset p, in a window of
+    cells that begins at p rounded down to 16 (the bytes from there to p
+    carried over from the last round), and takes every token whose output
+    starts before min(w0 + window, no_pad); the cells past the window are
+    its slack, so a match that starts in it ends in it.  The last round
+    is the one that takes the last token or reaches no_pad."""
+    if window % 16 or window < 16:
+        raise ValueError(f"window {window} must be a positive multiple of 16")
+    length, _, start = _fields(tokens.long().cpu())
+    n, out = len(start), []
+    p = k = carry = 0
+    while True:
+        w0 = p - carry
+        k1 = max(k, int(torch.searchsorted(start, min(w0 + window, no_pad))))
+        if k1 > k:
+            p = int(start[k1 - 1] + length[k1 - 1])
+        e = min(p, no_pad) - w0
+        out.append((w0, k, k1, e))
+        if k1 >= n or p >= no_pad:
+            return out
+        k, carry = k1, e % 16
+
+
+def resolve_rounds_ref(tokens: torch.Tensor, ntok: torch.Tensor, nt_pad: int,
+                       no_pad: int, window: int = WINDOW):
+    """Kernel f's rounds, the plain way, one stream at a time: the same
+    words as ``resolve_batch_ref``.
+
+    Each round of ``round_bounds``: token ids scattered at their start
+    cells and a running maximum give each byte its token; a byte of a
+    match copies the cell s - d + q % d inside the window, or reads the
+    finished output before it, or 0 before the stream's start; pointer
+    doubling resolves the cells; the finished groups of 16 bytes go out,
+    and the last round writes its part group with zeros past the output."""
+    B = tokens.shape[0]
+    n_all = ntok.long().clamp(0, nt_pad).tolist()
+    out = torch.zeros(B, no_pad, dtype=torch.uint8)
+    cells = -(-(window - 1 + MAX_MATCH) // 16) * 16
+    for b in range(B):
+        t = tokens[b, :n_all[b]].long().cpu()
+        _, dist, start = _fields(t)
+        row = out[b]
+        # a cell is a resolved byte (ptr -1) or a pointer to an earlier cell
+        byte = torch.zeros(cells, dtype=torch.uint8)
+        ptr = torch.full((cells,), -1, dtype=torch.int64)
+        rounds = round_bounds(t, no_pad, window)
+        carry = 0
+        for r, (w0, k0, k1, e) in enumerate(rounds):
+            last = r == len(rounds) - 1
+            if e > carry:
+                cover = torch.full((cells,), -1, dtype=torch.int64)
+                cover[start[k0:k1] - w0] = torch.arange(k0, k1)
+                tid = torch.cummax(cover[carry:e], 0).values
+                at = torch.arange(carry, e)
+                s0, d = start[tid] - w0, dist[tid]
+                src = s0 - d + (at - s0) % d.clamp(min=1)
+                lit = d == 0
+                inside = ~lit & (src >= 0)
+                before = ~lit & ~inside & (w0 + src >= 0)
+                byte[carry:e] = torch.where(lit, t[tid] & 0xFF, 0).to(torch.uint8)
+                byte[carry:e][before] = row[(w0 + src)[before]]
+                ptr[carry:e] = torch.where(inside, src, -1)
+                while bool((ptr >= 0).any()):
+                    live = ptr >= 0
+                    j = ptr[live]
+                    byte[live] = torch.where(ptr[j] < 0, byte[j], byte[live])
+                    ptr[live] = ptr[j]
+            keep = (e + 15) // 16 * 16 if last else e // 16 * 16
+            byte[e:] = 0
+            row[w0:w0 + keep] = byte[:keep]
+            if last:
+                break
+            carry = e - keep
+            byte[:carry] = byte[keep:e].clone()
+            byte[carry:] = 0
+    return out.to(tokens.device).view(torch.int32).reshape(B, no_pad // 4)
+
+
 def resolve_batch(tokens: torch.Tensor, ntok: torch.Tensor, nt_pad: int,
                   no_pad: int):
     """Materialize B token streams into bytes.
@@ -139,6 +237,8 @@ def resolve_batch(tokens: torch.Tensor, ntok: torch.Tensor, nt_pad: int,
         return resolve_batch_ref(tokens, ntok, nt_pad, no_pad)
     global launches
     tokens = tokens.contiguous()
+    if tokens.data_ptr() % 16:                  # the kernel reads 16-byte groups
+        tokens = tokens.clone()
     ntok = ntok.contiguous()
     B = tokens.shape[0]
     out = torch.empty(B, no_pad // 4, dtype=torch.int32, device=tokens.device)

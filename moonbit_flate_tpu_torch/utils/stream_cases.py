@@ -7,7 +7,8 @@ and flushed streams, and hand-made streams for each rule of the parse
 kernel.  ``status`` is what the parser reports at a token capacity of
 CASE_CAPACITY (8 chunks of 512): 1 done, 0 capacity exhausted, -3
 corrupt, -4 truncated.  ``fuzz_cases`` are mutants of good streams, and
-``token_cases`` are token rows for the resolve kernel.  The port's tests hold the port against the JAX package on
+``token_cases`` and ``window_tokens`` are token rows for the resolve
+kernel.  The port's tests hold the port against the JAX package on
 them, and chip_smoke.py holds the CUDA kernels against their plain
 twins on them.
 """
@@ -392,3 +393,23 @@ def token_cases():
     out.append(("match_first", [_match(10, 1), 65]))
     out.append(("empty", []))
     return [(name, np.asarray(t, np.int32)) for name, t in out]
+
+
+def window_tokens(n_out, seed=17):
+    """A valid token row of at least n_out bytes, almost all of it long
+    matches (258 bytes seven times in ten) with one to three literals
+    between two, at distances from 1 to 32768 (never past the output so
+    far): the last token a round of the resolve kernel takes nearly
+    always runs past the round's window, and sources lie inside the
+    window, in the finished output before it, and across its start."""
+    rng = np.random.default_rng(seed)
+    dists = (1, 2, 3, 5, 16, 31, 258, 1000, 4096, 16383, 16384, 16385, 32768)
+    toks = rng.integers(0, 256, 64).tolist()
+    out = len(toks)
+    while out < n_out:
+        length = 258 if rng.random() < 0.7 else int(rng.integers(3, 259))
+        toks.append(_match(length, min(dists[rng.integers(len(dists))], out)))
+        lits = rng.integers(0, 256, int(rng.integers(1, 4))).tolist()
+        toks += lits
+        out += length + len(lits)
+    return np.asarray(toks, np.int32)

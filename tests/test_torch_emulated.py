@@ -1,10 +1,12 @@
-"""The CUDA sources of the walk (``csrc/walk.cu``) and of the symbol
-parser (``csrc/parse.cu``), compiled for the CPU by ``kernels/emulate.py``
-(one OS thread a CUDA thread) and held exactly against their plain twins.
+"""The CUDA sources of the walk (``csrc/walk.cu``), the symbol parser
+(``csrc/parse.cu``), the resolver (``csrc/resolve.cu``) and the bit packs
+(``csrc/pack.cu``), compiled for the CPU by ``kernels/emulate.py`` (one
+OS thread a CUDA thread) and held exactly against their plain twins.
 
 This tests the kernels' own logic (tiles, entries, the fast loop, the
-turns of the parsing lane, table builds, stored-block copies) without a
-card, at small shapes.  It cannot stand in for the card: chip_smoke.py
+turns of the parsing lane, table builds, stored-block copies, the
+resolver's windows, rounds and pointer doubling, the batched pack's tile
+sums, scans and edge words) without a card, at small shapes.  It cannot stand in for the card: chip_smoke.py
 builds the same sources with nvcc and holds them against the same twins
 there.  Without g++ the tests skip.
 """
@@ -18,8 +20,10 @@ import torch
 from moonbit_flate_tpu_torch import native
 from moonbit_flate_tpu_torch.inflate.cuda_inflate import scan_tokens
 from moonbit_flate_tpu_torch.kernels import emulate
+from moonbit_flate_tpu_torch.ops import pack as TK
 from moonbit_flate_tpu_torch.ops import parse as TP
 from moonbit_flate_tpu_torch.ops import pipeline as TPL
+from moonbit_flate_tpu_torch.ops import resolve as TR
 from moonbit_flate_tpu_torch.ops import walk as TW
 from moonbit_flate_tpu_torch.utils import stream_cases as SC
 from moonbit_flate_tpu_torch.utils.lane_cases import lane_cases, rule_cases
@@ -171,3 +175,110 @@ def test_emulated_walk_equals_twin(nb, ctxs, lens):
                            w.view(torch.uint8) if w.dtype == torch.bool else w), what
     if any(lens):
         assert bool(want[1].any())
+
+
+# ---------------------------------------------------------------------------
+# the resolver
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def resolve_emulated():
+    fn = _entry("resolve", "resolve_launch", TR._ARGTYPES)
+
+    def run(rows, no_pad, ntok=None, fills=None):
+        """Rows of tokens into words; ``fills[i]`` goes past row i's tokens."""
+        nt_pad = -(-max(max(map(len, rows)), 1) // 1024) * 1024
+        toks = torch.zeros((len(rows), nt_pad), dtype=torch.int32)
+        for i, t in enumerate(rows):
+            toks[i, len(t):] = fills[i] if fills else 0
+            toks[i, :len(t)] = torch.from_numpy(np.asarray(t, np.int32))
+        n = torch.tensor([len(t) for t in rows] if ntok is None else ntok,
+                         dtype=torch.int32)
+        # what the kernel does not write shows as a difference
+        out = torch.full((len(rows), no_pad // 4), 0x5A5A5A5A, dtype=torch.int32)
+        assert fn(n.data_ptr(), toks.data_ptr(), out.data_ptr(), len(rows), nt_pad,
+                  no_pad, None) == 0
+        return out, TR.resolve_batch_ref(toks, n, nt_pad, no_pad)
+
+    return run
+
+
+def _zlib_tokens(data, level):
+    return scan_tokens(zlib.compress(data, level)[2:-4])
+
+
+def test_emulated_resolver_on_rows_across_several_windows(resolve_emulated):
+    try:
+        native.scanner()
+    except RuntimeError as e:
+        pytest.skip(f"host scanner unavailable: {e}")
+    datas = [_corpus(45_000, 4), b"\x00" * 40_000]
+    rows = [_zlib_tokens(d, lv) for d, lv in zip(datas, (6, 9))]
+    rows.append(SC.window_tokens(40_000, seed=1))
+    no_pad = 6 * TR.OUT_BYTES
+    got, want = resolve_emulated(rows, no_pad)
+    assert torch.equal(got, want)
+    flat = got.numpy().view(np.uint8)
+    for i, d in enumerate(datas):
+        assert flat[i, :len(d)].tobytes() == d and not flat[i, len(d):].any()
+    assert all(len(TR.round_bounds(torch.from_numpy(np.asarray(t)), no_pad)) >= 3
+               for t in rows)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5])
+def test_emulated_resolver_on_rle(resolve_emulated, d):
+    rows = [list(range(1, d + 1)) + [SC._match(258, d)] * 70,
+            list(range(7, 7 + d)) + [SC._match(3 + i * 7 % 256, d) for i in range(140)]]
+    got, want = resolve_emulated(rows, 3 * TR.OUT_BYTES)
+    assert torch.equal(got, want)
+
+
+def test_emulated_resolver_on_token_cases_past_ntok_and_cut(resolve_emulated):
+    """The token cases with stray literals or matches past ntok; ntok past
+    the row's capacity and below 0; a long row cut at no_pad mid-match."""
+    rows = [t for _, t in SC.token_cases()] * 2 + [SC.window_tokens(12_000, seed=7)]
+    ntok = [len(t) for t in rows]
+    ntok[-1] = 1 << 30
+    ntok[0] = -5
+    fills = [0x41 if i % 2 else SC._match(100, 3) for i in range(len(rows))]
+    got, want = resolve_emulated(rows, TR.OUT_BYTES, ntok, fills)
+    assert torch.equal(got, want)
+    assert int(want[-1, -1]) != 0                 # the cut row fills its capacity
+
+
+
+# ---------------------------------------------------------------------------
+# the bit packs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,NU", [(5, 9000), (3, 4096), (3, 4097), (2, 1)])
+def test_emulated_packs_equal_twins(B, NU):
+    """Random units, 60% of the widths zero, an all-zero row, a row of
+    width 28, a row whose bits run past n_words; NU a multiple of the
+    tile, not one, and tiny."""
+    batch = _entry("pack", "pack_batch_launch", TK._ARGTYPES_BATCH)
+    single = _entry("pack", "pack_launch", TK._ARGTYPES)
+    rng = np.random.default_rng(NU)
+    w = rng.integers(0, TK.MAX_WIDTH + 1, (B, NU)).astype(np.int32)
+    w[rng.random((B, NU)) < 0.6] = 0
+    if B > 2:
+        w[1] = 0
+        w[2] = TK.MAX_WIDTH
+    v = rng.integers(-2**31, 2**31, (B, NU), dtype=np.int64).astype(np.int32)
+    n_words = int(w[0].sum()) // 32 + 2        # row 0 fits, longer rows are cut
+    vals, wids = torch.from_numpy(v), torch.from_numpy(w)
+    words, bits, sums = TK._batch_buffers(B, NU, n_words, "cpu")
+    words.fill_(0x5A5A5A5A)
+    bits.fill_(-7)
+    assert batch(vals.data_ptr(), wids.data_ptr(), words.data_ptr(), bits.data_ptr(),
+                 sums.data_ptr(), B, NU, n_words, TK.ALL_PASSES, None) == 0
+    want_words, want_bits = TK.pack_units_batch_ref(vals, wids, n_words)
+    assert torch.equal(words, want_words) and torch.equal(bits, want_bits)
+    if B > 2:
+        assert int(want_bits[2]) > 32 * n_words
+    for b in range(B):
+        offsets, _ = TK._offsets(wids[b])
+        row = torch.zeros(n_words, dtype=torch.int32)
+        assert single(vals[b].contiguous().data_ptr(), wids[b].contiguous().data_ptr(),
+                      offsets.data_ptr(), row.data_ptr(), NU, n_words, None) == 0
+        assert torch.equal(row, TK.pack_units_ref(vals[b], wids[b], n_words)[0])
