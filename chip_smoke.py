@@ -9,7 +9,8 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    twins on the same CUDA tensors at the main path's shapes (exact
    equality: the codec is integer-only), the walk also on rows with a
    context deep in the segment and data that ends early, and on batches
-   of 2- and 1-block segments; times the walk's four kernels one by one;
+   of 2- and 1-block segments; times the walk's four kernels one by one
+   and the pack as called and its two kernels alone;
    drives the encode main path,
    ``CUDACompressor(blocks_per_segment=16)`` over a 16 MiB mixed corpus,
    checks it round-trips through zlib and that both kernels were
@@ -21,7 +22,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    first and last waves against their twins; drives the decode main
    path, ``decompress_shards`` over 32 x 1024 zlib level-1 shards of
    4096 bytes (128 MiB decoded), checks the bytes against the corpus
-   and that both kernels were launched there; times it all;
+   and that both kernels were launched there; times it all, the parse
+   kernel also alone, and one decode in parts, the staging and the
+   readback also through pageable memory as they were made before;
 5. scalar decode: one launch of the parse kernel over 64 zlib level-1
    streams of 1,048,560-byte segments with the case streams of
    ``utils/stream_cases.py`` appended (every block type and error rule,
@@ -38,7 +41,7 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    dictionary, and the exceptions of a truncated and a corrupt stream;
    times it all;
 6. manifest: holds the batched pack kernels against their twin and,
-   row by row, against the one-segment pack kernel, on the units of 16
+   row by row, against the one-row call (``pack_units_dense``), on the units of 16
    real segments and on random units with an all-zero row and a row
    clipped at n_words, and times their two passes; drives the manifest main path,
    ``compress_with_manifest`` over the 64-shard corpus (4 waves of 16
@@ -353,9 +356,17 @@ def encode_phase(dev):
     walk_ops = 2 * 13 * 3 * B * S + 40 * matches + 2 * matched_bytes
     pv, pw = pack_cases[0]
     pack_ms = cuda_ms(lambda: pack.pack_units_dense(pv, pw, n_words), 20)
+    # the C entry's two kernels alone, one row, on the wrapper's buffers
+    bufs = pack._batch_buffers(1, pv.numel(), n_words, dev)
+    pack_alone_ms = cuda_ms(lambda: pack._launch_batch(pv[None], pw[None], n_words, bufs), 20)
+    if max_abs_err((bufs[0][0], bufs[1][0]), pack.pack_units_dense(pv, pw, n_words)):
+        raise AssertionError("pack kernels called alone differ from the wrapper")
     pack_plain_ms = cuda_ms(lambda: pack.pack_units_ref(pv, pw, n_words), 5)
     pack_bytes = pv.numel() * 8 + n_words * 4
     pack_ops = 12 * pv.numel()
+    print(f"pack {pack_ms:.4f} ms as the wrapper is called, the kernels alone "
+          f"{pack_alone_ms:.4f} ms, twin {pack_plain_ms:.4f} ms ({pv.numel()} units, "
+          f"one row); bound bytes {pack_bytes}", flush=True)
 
     return [
         kernel_entry("walk", "moonbit_flate_tpu_torch/csrc/walk.cu",
@@ -448,8 +459,10 @@ def decode_phase(dev):
     profile_main_path("decode", lambda: decompress_shards(zstreams, sizes))
 
     # one decode in parts: staging (host, then the copy to the card), the
-    # kernels with the token relayout, the status readback, and the bytes
-    # (gather, copy to the host, split into bytes objects)
+    # kernels with the token relayout, the status readback, the kept bytes
+    # (gather, copy to the host through a pinned buffer) and their split
+    # into bytes objects; then, on the same streams, the staging and the
+    # copy as they were made before, through pageable host memory
     del dec2
     marks = []
 
@@ -462,15 +475,35 @@ def decode_phase(dev):
     mark()
     out, misc = LR.inflate_waves(nb, inw, waves)
     mark()
-    n = misc[:, 1].reshape(-1).cpu().numpy()
+    n = misc[:, 1].reshape(-1).cpu().numpy().astype(np.int64)
     mark()
-    if LR.shard_bytes(out, n) != dec:
+    flat = LR._kept_bytes(out, n)
+    mark()
+    if LR._split(flat, n) != dec:
         raise AssertionError("decode in parts differs from decompress_shards")
     mark()
+    buf = bytearray(waves * LI.NSTR * LI.IN_W * 4)
+    for i, z in enumerate(zstreams):
+        buf[i * LI.IN_W * 4: i * LI.IN_W * 4 + len(z)] = z
+    inw_pageable = torch.frombuffer(buf, dtype=torch.int32).reshape(
+        waves, LI.NSTR, LI.IN_CHUNKS, LI.LANE).to(dev).permute(0, 2, 1, 3).contiguous()
+    mark()
+    rows = out.permute(0, 2, 1, 3).reshape(waves * LI.NSTR, -1).contiguous().view(torch.uint8)
+    keep = torch.arange(LI.SEGB, device=dev)[None, :] < torch.from_numpy(n).to(dev)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    flat_pageable = rows[keep].cpu().numpy()
+    marks.append(time.time())
+    if not torch.equal(inw_pageable, inw) or flat_pageable.tobytes() != flat.tobytes():
+        raise AssertionError("pinned and pageable staging or readback differ")
     parts = np.diff(marks) * 1e3
+    parts[-1] = (marks[-1] - t0) * 1e3
     print("decode breakdown: staging {:.1f} ms, inflate_waves {:.1f} ms, status "
-          "readback {:.1f} ms, bytes to the host {:.1f} ms; total {:.1f} ms".format(
-              *parts, parts.sum()), flush=True)
+          "readback {:.1f} ms, kept bytes to the host (pinned) {:.1f} ms, split into "
+          "bytes {:.1f} ms; total {:.1f} ms; the same through pageable memory: staging "
+          "{:.1f} ms, kept bytes to the host {:.1f} ms".format(
+              *parts[:5], parts[:5].sum(), *parts[5:]), flush=True)
+    del buf, inw_pageable, rows, keep, flat, flat_pageable
 
     tok, misc = LI.parse_waves(nb, inw, waves)
     if not bool((misc[:, 0] == LI.ST_DONE).all()):
@@ -479,6 +512,11 @@ def decode_phase(dev):
     outlen = misc[:, 1].contiguous()
     out = LR.resolve_waves(outlen, tok_lm, waves)
     parse_ms = cuda_ms(lambda: LI.parse_waves(nb, inw, waves), 3)
+    bufs = LI._buffers(waves, dev)
+    parse_alone_ms = cuda_ms(lambda: LI._launch(nb, inw, waves, bufs), 3)
+    if max_abs_err(bufs[:2], (tok, misc)):
+        raise AssertionError("lanes_parse called alone differs from the wrapper")
+    del bufs
     resolve_ms = cuda_ms(lambda: LR.resolve_waves(outlen, tok_lm, waves), 5)
     parse_plain_ms = cuda_ms(lambda: LI.parse_waves_ref(nb[:1], inw[:1], 1), 1, warm=False)
     resolve_plain_ms = cuda_ms(
@@ -488,8 +526,8 @@ def decode_phase(dev):
     # every token row and misc.  Kernel BC reads outlen and each stream's
     # token rows, 32 at a time, up to the one that completes its output,
     # and writes every output word.  Operations: kernel A up to 64 a
-    # symbol (15 length-counting rounds), a symbol per literal and two
-    # per match; BC 4 a byte and 8 a record.
+    # symbol (a length count of up to 15 rounds where the root misses), a
+    # symbol per literal and two per match; BC 4 a byte and 8 a record.
     n_lit = int((tok > 0).sum())
     n_match = int((tok < 0).sum())
     in_words = int(((nb.long() + 31) // 32).sum())
@@ -502,7 +540,8 @@ def decode_phase(dev):
     parse_ops = 64 * (n_lit + 2 * n_match)
     resolve_bytes = 4 * (outlen.numel() + rows_read + out.numel())
     resolve_ops = 4 * len(corpus) + 8 * (n_lit + n_match)
-    print(f"lanes_parse {parse_ms:.4f} ms ({waves} waves), twin {parse_plain_ms:.1f} ms "
+    print(f"lanes_parse {parse_ms:.4f} ms ({waves} waves) as the wrapper is called, the "
+          f"kernel alone {parse_alone_ms:.4f} ms, twin {parse_plain_ms:.1f} ms "
           f"(1 wave); lanes_resolve {resolve_ms:.4f} ms, twin {resolve_plain_ms:.1f} ms; "
           f"{n_lit} literals, {n_match} matches; bound bytes: lanes_parse "
           f"{parse_bytes} ({in_words} input words), lanes_resolve {resolve_bytes} "

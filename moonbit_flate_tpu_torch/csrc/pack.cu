@@ -1,73 +1,39 @@
 // LSB-first bit packing of (value, width) units into 32-bit words.
 //
-// Replaces moonbit_flate_tpu/ops/pack.py:pack_units_dense (the Pallas
-// kernel _place_kernel, which ORs [3, 128]-word entities built by a
-// dense XLA merge into the output).  On the H100 the work is bound by
-// memory: each unit is read once (value, width and its bit offset) and
-// each output word written once, with no arithmetic to speak of.  So
-// the design drops the TPU's entity/row merge and gives every unit one
-// thread: the unit's bits land in at most two words, OR-ed in with
-// atomicOr.  Units never share bits, so the result does not depend on
-// the order of the atomics.  Offsets come from an exclusive prefix sum
-// the caller computes before the launch.
-//
-// pack_batch_launch replaces pack_units_dense_batch of that Python
-// module (_make_place_kernel_batch, the same merge with a segment axis):
-// B independent packs, the bit offsets computed inside, in int32 (the
-// caller checks that a row's bits fit).  Two kernels, each on a grid of
-// (tiles of kTileUnits units, rows):
+// pack_batch_launch replaces both Pallas kernels of
+// moonbit_flate_tpu/ops/pack.py: pack_units_dense (_place_kernel, which
+// ORs [3, 128]-word entities built by a dense XLA merge into the output)
+// is its one-row case, pack_units_dense_batch (_make_place_kernel_batch,
+// the same merge with a segment axis) its general one.  On the H100 the
+// work is bound by memory: each unit is read (value and width) and each
+// output word written, with next to no arithmetic.  So the design drops
+// the TPU's entity/row merge.  B independent packs, the bit offsets
+// computed inside, in int32 (the caller checks that a row's bits fit).
+// Two kernels, each on a grid of (tiles of kTileUnits units, rows):
 //
 //   1. tile_sums_kernel: each tile's total width, and the zeroing of a
 //      share of the row's words (the tiles' edge words are OR-ed in);
 //   2. pack_batch_kernel: a tile's offset is the sum of the row's
 //      earlier tile sums (at most a few hundred ints, read by the whole
-//      block); each warp scans the widths of its 512 units with warp
+//      block); each warp scans the widths of its 256 units with warp
 //      shuffles and ORs every unit's bits into the tile's words in shared
 //      memory; the words strictly inside the tile's bit range go out with
 //      plain coalesced stores, the first and last with atomicOr, since a
-//      neighbouring tile may share them.  The last tile writes the row's
-//      total bits.
+//      neighbouring tile may share them.  Units never share bits, so the
+//      result does not depend on the order of the atomics.  The last tile
+//      writes the row's total bits.
 //
-// What was a row-wise int64 prefix sum before the launch, and 8 bytes of
-// offsets a unit read back, is now a second read of the widths and a few
-// hundred ints a tile.
+// No prefix sum runs before the launch and no offsets are read back: the
+// offsets cost a second read of the widths and a few hundred ints a tile.
 #include <cstdint>
 #include <cuda_runtime.h>
-
-// One unit: mask the value to its width and OR its (at most two) words
-// into the row of n_words words; words at or past n_words are dropped.
-__device__ __forceinline__ void place_unit(int32_t value, int32_t width,
-                                           long long off,
-                                           uint32_t* __restrict__ words,
-                                           long long n_words) {
-  uint32_t w = (uint32_t)width;
-  if (w == 0) return;
-  uint32_t v = (uint32_t)value & ((1u << w) - 1u);
-  long long wi = off >> 5;
-  uint32_t sh = (uint32_t)(off & 31);
-  uint32_t lo = v << sh;
-  // v >> (32 - sh) without a shift by 32 when sh == 0
-  uint32_t hi = (v >> 1) >> (31 - sh);
-  if (wi < n_words && lo) atomicOr(words + wi, lo);
-  if (wi + 1 < n_words && hi) atomicOr(words + wi + 1, hi);
-}
-
-__global__ void pack_kernel(const int32_t* __restrict__ values,
-                            const int32_t* __restrict__ widths,
-                            const int64_t* __restrict__ offsets,
-                            uint32_t* __restrict__ words,
-                            long long nu, long long n_words) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nu) return;
-  place_unit(values[i], widths[i], offsets[i], words, n_words);
-}
 
 namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int kPackThreads = 256;
 constexpr int kPackWarps = kPackThreads / 32;
-constexpr int kTileUnits = 4096;                        // units a tile
+constexpr int kTileUnits = 2048;                        // units a tile
 constexpr int kPerLane = kTileUnits / kPackThreads;     // units a lane
 constexpr int kMaxWidth = 28;
 // words a tile's bits can touch: its bits, plus one word for a start
@@ -116,7 +82,7 @@ pack_batch_kernel(const int32_t* __restrict__ values, const int32_t* __restrict_
   int before = 0;
   for (int j = threadIdx.x; j < t; j += kPackThreads) before += sums[(long long)row * ntiles + j];
   before = warp_sum(before);
-  // this warp's 512 units, lane-interleaved: unit u0 + 32 c + lane
+  // this warp's 256 units, lane-interleaved: unit u0 + 32 c + lane
   const long long base = (long long)row * nu;
   const long long u0 = (long long)t * kTileUnits + warp * (32 * kPerLane);
   int wd[kPerLane], val[kPerLane], total = 0;
@@ -172,21 +138,8 @@ pack_batch_kernel(const int32_t* __restrict__ values, const int32_t* __restrict_
 
 }  // namespace
 
-extern "C" int pack_launch(const void* values, const void* widths,
-                           const void* offsets, void* words, long long nu,
-                           long long n_words, void* stream) {
-  const int threads = 256;
-  if (nu > 0) {
-    long long blocks = (nu + threads - 1) / threads;
-    pack_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)values, (const int32_t*)widths,
-        (const int64_t*)offsets, (uint32_t*)words, nu, n_words);
-  }
-  return (int)cudaGetLastError();
-}
-
 // phases: 1 tile sums and zeroing, 2 scan and place, 3 both (a call);
-// tile_sums is int32[rows, ntiles] scratch, ntiles = max(1, ceil(nu / 4096)).
+// tile_sums is int32[rows, ntiles] scratch, ntiles = max(1, ceil(nu / 2048)).
 extern "C" int pack_batch_launch(const void* values, const void* widths, void* words,
                                  void* bits, void* tile_sums, long long rows, long long nu,
                                  long long n_words, int phases, void* stream) {

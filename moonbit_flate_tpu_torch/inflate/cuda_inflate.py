@@ -28,7 +28,7 @@ from .. import native
 from ..ops.parse import (OUT_CHUNK, ST_DONE, ST_MORE, ST_TRUNC, parse_batch,
                          parse_stream, stage_streams)
 from ..ops.resolve import resolve_batch, resolve_tokens_batch
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host
 from ..utils.errors import CorruptInputError, UnexpectedEOFError
 
 # Token bytes of one sub-batch of decompress_segments (4 B x capacity a
@@ -105,17 +105,9 @@ def _parse_resolve(nbits, words, n_chunks):
 
 
 def _output_to_host(out: torch.Tensor) -> np.ndarray:
-    """A sub-batch's output words as a host uint8 array.  From the card:
-    one non-blocking copy into a pinned buffer (PyTorch's caching host
-    allocator hands the same buffer back on the next call) and a wait
-    for the stream, which copies at the link's rate where a copy into
-    pageable memory goes through a staging buffer."""
-    if out.is_cuda:
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(out.device).synchronize()
-        out = host
-    return out.numpy().view(np.uint8)
+    """A sub-batch's output words as a host uint8 array, through a pinned
+    buffer from the card (``utils.device.to_host``)."""
+    return to_host(out).numpy().view(np.uint8)
 
 
 def decompress_segments(streams: list[bytes], out_sizes: list[int],

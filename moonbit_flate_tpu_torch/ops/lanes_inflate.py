@@ -17,10 +17,15 @@ match takes two steps (a gap row for the length code, then the record
 at the distance step); what is still active or paused after the last
 chunk is ST_OVERFLOW.
 
-``parse_waves`` launches ``csrc/lanes_parse.cu`` (one thread per stream,
-all waves in one launch) for CUDA tensors; ``parse_waves_ref`` is the
+``parse_waves`` launches ``csrc/lanes_parse.cu`` (a lane a stream, a
+warp a block, all waves in one launch; rich root tables and an input
+ring in shared memory) for CUDA tensors; ``parse_waves_ref`` is the
 plain PyTorch twin, one symbol step per loop iteration over all streams,
-and the wrapper takes it for CPU tensors only.
+and the wrapper takes it for CPU tensors only.  ``root_decode_ref`` is
+the plain model of the kernel's table decode (a root entry where there
+is one, else length counting, which the kernel does for codes one bit
+longer than the root with a bitmap of their symbols), held against the
+twin's ``_length_decode`` by the tests.
 """
 
 from __future__ import annotations
@@ -66,8 +71,9 @@ NDIST_MAP = 32   # distance ranks
 
 launches = 0  # kernel launches made by parse_waves
 
-# nbits, inw, tok, misc, n_streams, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+# nbits, inw, tok, misc, scratch, n_streams, stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+SCRATCH = 60 + (NLIT_MAP + NDIST_MAP) // 2   # int32 of kernel scratch a stream
 
 _M32 = 0xFFFFFFFF
 
@@ -77,22 +83,26 @@ def stage_streams_lanes(streams, waves: int, device=None):
     nbits int32[waves, 8, 128] (stream r of a wave at (r // 128,
     r % 128)) and inw int32[waves, IN_CHUNKS, 1024, 128] (word w of
     stream r at [wave, w // 128, r, w % 128]), zero past each stream.
+    For the card the streams are written into one pinned host buffer that
+    goes over in one non-blocking copy; the relayout runs on the card.
     ``device=None`` means the card."""
     dev = resolve_device(device)
     B = waves * NSTR
     stride = IN_W * 4
     if len(streams) > B:
         raise ValueError(f"{len(streams)} streams do not fit in {waves} waves")
-    buf = bytearray(B * stride)
+    host = torch.empty(B * stride, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    host.zero_()
+    buf = memoryview(host.numpy())
     nbits = np.zeros(B, np.int32)
     for i, s in enumerate(streams):
         if len(s) > stride:
             raise ValueError(f"stream {i}: {len(s)} bytes > {stride}")
         buf[i * stride: i * stride + len(s)] = s
         nbits[i] = len(s) * 8
-    words = torch.frombuffer(buf, dtype=torch.int32).reshape(waves, NSTR, IN_CHUNKS, LANE)
+    words = host.view(torch.int32).reshape(waves, NSTR, IN_CHUNKS, LANE)
     return (torch.from_numpy(nbits.reshape(waves, SUB, LANE)).to(dev),
-            words.to(dev).permute(0, 2, 1, 3).contiguous())
+            words.to(dev, non_blocking=True).permute(0, 2, 1, 3).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +145,41 @@ def _length_decode(lo, fc, base):
     ln = torch.where(matched, first[:, 0] + 1, 0)
     rank = torch.where(matched, (base.gather(1, first) + o.gather(1, first))[:, 0], 0)
     return ln, rank, matched
+
+
+FIX_ROOT_BITS = (9, 5)   # kernel roots of the fixed code: literal/length, distance
+DYN_ROOT_BITS = (8, 6)   # a dynamic block's roots
+
+
+def root_table_ref(fc, base, entries, root_bits: int):
+    """One code's root as ``csrc/lanes_parse.cu`` holds it: for each
+    pattern of ``root_bits`` bits (first bit least significant) the code
+    of length <= root_bits that it starts with, as its length (0 where
+    none does) and its map entry.  fc, base: int64[15] (``_canonical``);
+    entries: int64[n] rank -> class << 8 | payload."""
+    length = torch.zeros(1 << root_bits, dtype=torch.int64)
+    entry = torch.zeros_like(length)
+    for l in range(1, root_bits + 1):
+        first, count = int(fc[l - 1]) >> 9, int(fc[l - 1]) & 511
+        for o in range(count):
+            rev = int(f"{first + o:0{l}b}"[::-1], 2)
+            length[rev::1 << l] = l
+            entry[rev::1 << l] = entries[min(int(base[l - 1]) + o, len(entries) - 1)]
+    return length, entry
+
+
+def root_decode_ref(lo, root, root_bits: int, fc, base, entries):
+    """The kernel's decode of the code at the head of each ``lo`` (int64[P],
+    LSB first): the root entry where there is one, else length counting
+    on the canonical tables.  Returns (length, map entry, matched) as the
+    twin's ``_length_decode`` and rank map give them."""
+    length, entry = root
+    idx = lo & ((1 << root_bits) - 1)
+    ln, rank, matched = _length_decode(lo, fc.expand(len(lo), -1), base.expand(len(lo), -1))
+    slow = entries[rank.clamp(max=len(entries) - 1)]
+    hit = length[idx] > 0
+    return (torch.where(hit, length[idx], ln), torch.where(hit, entry[idx], slow),
+            hit | matched)
 
 
 def _canonical(counts):
@@ -448,13 +493,24 @@ def parse_waves(nbits: torch.Tensor, inw: torch.Tensor, waves: int):
                          "int32[waves, IN_CHUNKS, 1024, 128] inw")
     nbits = nbits.contiguous()
     inw = inw.contiguous()
-    tok = torch.empty(waves, TOK_CHUNKS, 128, SUB, LANE, dtype=torch.int32,
-                      device=inw.device)
-    misc = torch.empty(waves, 4, SUB, LANE, dtype=torch.int32, device=inw.device)
+    bufs = _buffers(waves, inw.device)
+    _launch(nbits, inw, waves, bufs)
+    launches += 1
+    return bufs[0], bufs[1]
+
+
+def _buffers(waves: int, device):
+    """tok, misc and the kernel's scratch rows, as ``parse_waves`` fills them."""
+    return (torch.empty(waves, TOK_CHUNKS, 128, SUB, LANE, dtype=torch.int32, device=device),
+            torch.empty(waves, 4, SUB, LANE, dtype=torch.int32, device=device),
+            torch.empty(waves * NSTR * SCRATCH, dtype=torch.int32, device=device))
+
+
+def _launch(nbits, inw, waves: int, bufs):
+    """One checked call of ``lanes_parse_launch`` on the wrapper's buffers."""
+    tok, misc, scratch = bufs
     fn = build.entry("lanes_parse", "lanes_parse_launch", _ARGTYPES)
-    build.check(fn(nbits.data_ptr(), inw.data_ptr(), tok.data_ptr(),
-                   misc.data_ptr(), waves * NSTR,
+    build.check(fn(nbits.data_ptr(), inw.data_ptr(), tok.data_ptr(), misc.data_ptr(),
+                   scratch.data_ptr(), waves * NSTR,
                    torch.cuda.current_stream(inw.device).cuda_stream),
                 "lanes_parse")
-    launches += 1
-    return tok, misc

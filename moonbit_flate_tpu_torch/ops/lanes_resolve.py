@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..utils.device import to_host
 from ..utils.errors import CorruptInputError, UnexpectedEOFError
 from .lanes_inflate import (IN_W, LANE, NSTR, SEGB, ST_DONE, ST_OVERFLOW,
                             ST_TRUNC, SUB, TOK_CHUNKS, TOK_ROWS, parse_waves,
@@ -150,13 +151,21 @@ def decompress_shards(streams, out_sizes, device=None):
 def shard_bytes(out: torch.Tensor, lengths) -> list:
     """The first n[i] bytes of stream i of ``out`` (int32[waves, GROUPS,
     1024, 128]) for the first len(lengths) streams: one gather on the
-    device, one copy to the host."""
-    waves = out.shape[0]
+    device, one copy to the host through a pinned buffer, then a split."""
     n = np.asarray(lengths, np.int64)
+    return _split(_kept_bytes(out, n), n)
+
+
+def _kept_bytes(out: torch.Tensor, n: np.ndarray) -> memoryview:
+    """The bytes ``shard_bytes`` keeps, one after another, on the host."""
+    waves = out.shape[0]
     rows = out.permute(0, 2, 1, 3).reshape(waves * NSTR, -1)[:len(n)]
     rows = rows.contiguous().view(torch.uint8)
     keep = (torch.arange(SEGB, device=out.device)[None, :]
             < torch.from_numpy(n).to(out.device)[:, None])
-    flat = memoryview(rows[keep].cpu().numpy())
+    return memoryview(to_host(rows[keep]).numpy())
+
+
+def _split(flat: memoryview, n: np.ndarray) -> list:
     ends = np.cumsum(n).tolist()
     return [bytes(flat[e - k:e]) for e, k in zip(ends, n.tolist())]

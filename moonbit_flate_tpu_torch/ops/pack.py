@@ -1,27 +1,23 @@
 """Bit packing of (value, width) units into 32-bit words.
 
-Kernel 1 of the port.  ``pack_units_dense`` replaces the Pallas kernel
-of ``moonbit_flate_tpu/ops/pack.py:pack_units_dense`` (``_place_kernel``)
-with ``csrc/pack.cu``: one thread per unit OR-s the unit's two shifted
-words into place.  What bounds it on the H100 is memory (8 bytes read
-per unit, 4 written per word, next to no arithmetic); the design reads
-each unit once and takes the bit offsets from one int64 prefix sum
-before the launch, as the JAX package took its sums outside the kernel.
-
-``pack_units_ref`` is the plain PyTorch twin (the port of
-``moonbit_flate_tpu/ops/pipeline.py:pack_units``).  The wrapper takes
-the twin for CPU tensors only; for CUDA tensors it launches the kernel.
-
-``pack_units_dense_batch`` replaces the Pallas kernel of
+One CUDA entry, ``pack_batch_launch`` of ``csrc/pack.cu``, serves both
+wrappers.  ``pack_units_dense_batch`` replaces the Pallas kernel of
 ``moonbit_flate_tpu/ops/pack.py:pack_units_dense_batch``
-(``_make_place_kernel_batch``) with the C entry ``pack_batch_launch``
-of ``csrc/pack.cu``: B independent packs, two CUDA kernels on a grid of
-(tiles of ``TILE_UNITS`` units, rows) that compute the bit offsets
-themselves in int32 (tile sums, then a scan inside each tile) and build
-each tile's words in shared memory.  Its twin ``pack_units_batch_ref``
-is the port of the ``vmap`` of ``pack_units``, and ``launches_batch``
-counts wrapper calls that launch, one a call whatever number of CUDA
-kernels the entry runs.
+(``_make_place_kernel_batch``): B independent packs, two CUDA kernels on
+a grid of (tiles of ``TILE_UNITS`` units, rows) that compute the bit
+offsets themselves in int32 (tile sums, then a scan inside each tile)
+and build each tile's words in shared memory.  ``pack_units_dense``
+replaces ``pack_units_dense`` of that module (``_place_kernel``) as the
+entry's one-row case.  What bounds both on the H100 is memory (8 bytes
+read a unit, 4 written a word, next to no arithmetic).
+
+``pack_units_ref`` is the plain PyTorch twin of the one-row form (the
+port of ``moonbit_flate_tpu/ops/pipeline.py:pack_units``) and
+``pack_units_batch_ref`` the port of its ``vmap``.  The wrappers take the
+twins for CPU tensors only; for CUDA tensors they launch the kernels.
+``launches`` counts calls of ``pack_units_dense`` that launched,
+``launches_batch`` those of ``pack_units_dense_batch``: one a call
+whatever number of CUDA kernels the entry runs.
 """
 
 from __future__ import annotations
@@ -32,15 +28,13 @@ import torch
 
 from ..kernels import build
 
-TILE_UNITS = 4096   # units a tile of the batched kernels (kTileUnits)
+TILE_UNITS = 2048   # units a tile of the batched kernels (kTileUnits)
 MAX_WIDTH = 28      # the widest unit
 ALL_PASSES = 3      # pack_batch_launch: 1 tile sums and zeroing, 2 scan and place
 
 launches = 0        # kernel launches made by pack_units_dense
 launches_batch = 0  # calls of pack_units_dense_batch that launched its kernels
 
-# values, widths, offsets, words, nu, n_words, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 # values, widths, words, bits, tile_sums, rows, nu, n_words, phases, stream
 _ARGTYPES_BATCH = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
@@ -74,25 +68,18 @@ def pack_units_ref(values: torch.Tensor, widths: torch.Tensor, n_words: int):
 
 
 def pack_units_dense(values: torch.Tensor, widths: torch.Tensor, n_words: int):
-    """Same contract as ``pack_units_ref``; launches ``csrc/pack.cu`` for
-    CUDA tensors.  values, widths: int32[NU] (widths 0..28)."""
+    """Same contract as ``pack_units_ref``; for CUDA tensors one call of
+    ``pack_batch_launch`` with one row.  values, widths: int32[NU]
+    (widths 0..28)."""
     if not values.is_cuda:
         return pack_units_ref(values, widths, n_words)
     global launches
     if values.dtype != torch.int32 or widths.dtype != torch.int32 \
             or values.shape != widths.shape or values.dim() != 1:
         raise ValueError("pack_units_dense takes int32[NU] values and widths")
-    values = values.contiguous()
-    widths = widths.contiguous()
-    offsets, total = _offsets(widths)
-    words = torch.zeros(n_words, dtype=torch.int32, device=values.device)
-    fn = build.entry("pack", "pack_launch", _ARGTYPES)
-    build.check(fn(values.data_ptr(), widths.data_ptr(), offsets.data_ptr(),
-                   words.data_ptr(), values.numel(), n_words,
-                   torch.cuda.current_stream(values.device).cuda_stream),
-                "pack")
+    words, bits = _pack_rows(values[None], widths[None], n_words)
     launches += 1
-    return words, total
+    return words[0], bits[0]
 
 
 def pack_units_batch_ref(values: torch.Tensor, widths: torch.Tensor,
@@ -145,13 +132,20 @@ def pack_units_dense_batch(values: torch.Tensor, widths: torch.Tensor,
             or values.shape != widths.shape or values.dim() != 2:
         raise ValueError("pack_units_dense_batch takes int32[B, NU] values "
                          "and widths")
+    words, bits = _pack_rows(values, widths, n_words)
+    launches_batch += 1
+    return words, bits
+
+
+def _pack_rows(values, widths, n_words):
+    """One call of ``pack_batch_launch`` on int32[B, NU] CUDA units:
+    words int32[B, n_words] and total bits int32[B]."""
     B, NU = values.shape
     if NU * MAX_WIDTH >= 1 << 31:
-        raise ValueError(f"pack_units_dense_batch: {NU} units a row may hold "
+        raise ValueError(f"pack_units_dense: {NU} units a row may hold "
                          f"2**31 bits or more; offsets are int32")
     values = values.contiguous()
     widths = widths.contiguous()
     bufs = _batch_buffers(B, NU, n_words, values.device)
     _launch_batch(values, widths, n_words, bufs)
-    launches_batch += 1
     return bufs[0], bufs[1]

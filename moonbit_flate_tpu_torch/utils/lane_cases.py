@@ -71,6 +71,45 @@ def lane_cases():
     return streams
 
 
+def _one_distance_code(dist_bit):
+    """A final dynamic block of 'a', a match of length 3 at distance 1,
+    'b' and the end of block.  Literal/length code: 'a', 'b', 256, 257, two
+    bits each; distance code: symbol 0 alone, one bit, so the pattern 1
+    has no code.  ``dist_bit`` is the match's distance bit."""
+    w = _Bits()
+    w.put(1, 1)
+    w.put(2, 2)
+    w.put(258 - 257, 5)               # nlit = 258
+    w.put(0, 5)                       # ndist = 1
+    w.put(18 - 4, 4)                  # 18 code-length code lengths
+    # code-length code: 18 one bit (code 0), 1 and 2 two bits (10, 11)
+    order = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1)
+    cl_len = {18: 1, 2: 2, 1: 2}
+    for k in order:
+        w.put(cl_len.get(k, 0), 3)
+
+    def zeros(n):                     # runs of 11..138 zeros (symbol 18)
+        while n:
+            r = min(n, 138)
+            w.code(0, 1)
+            w.put(r - 11, 7)
+            n -= r
+
+    zeros(97)
+    w.code(3, 2)                      # 'a': 2
+    w.code(3, 2)                      # 'b': 2
+    zeros(256 - 99)
+    w.code(3, 2)                      # 256: 2
+    w.code(3, 2)                      # 257: 2
+    w.code(2, 2)                      # distance symbol 0: 1
+    w.code(0, 2)                      # 'a'
+    w.code(3, 2)                      # length 3
+    w.code(dist_bit, 1)               # distance 1, or no code
+    w.code(1, 2)                      # 'b'
+    w.code(2, 2)                      # end of block
+    return w.tobytes()
+
+
 def rule_cases():
     """Streams that reach kernel A's error and edge rules."""
     out = []
@@ -111,6 +150,9 @@ def rule_cases():
     w.put(1, 1)
     w.code(0, 7)
     out.append(w.tobytes())
+    # a dynamic block whose distance code is one code of length 1: a
+    # match through it decodes, one whose distance bit is 1 has no code
+    out += [_one_distance_code(bit) for bit in (0, 1)]
     # streams that inflate to more than SEGB bytes
     rng = np.random.default_rng(5)
     out.append(zlib.compress(b"A" * 5000, 1)[2:-4])

@@ -1,12 +1,17 @@
 """The CUDA sources of the walk (``csrc/walk.cu``), the symbol parser
-(``csrc/parse.cu``), the resolver (``csrc/resolve.cu``) and the bit packs
-(``csrc/pack.cu``), compiled for the CPU by ``kernels/emulate.py`` (one
-OS thread a CUDA thread) and held exactly against their plain twins.
+(``csrc/parse.cu``), the resolver (``csrc/resolve.cu``), the bit packs
+(``csrc/pack.cu``) and the two lane kernels (``csrc/lanes_parse.cu``,
+``csrc/lanes_resolve.cu``), compiled for the CPU by
+``kernels/emulate.py`` (one OS thread a CUDA thread) and held exactly
+against their plain twins.
 
 This tests the kernels' own logic (tiles, entries, the fast loop, the
 turns of the parsing lane, table builds, stored-block copies, the
 resolver's windows, rounds and pointer doubling, the batched pack's tile
-sums, scans and edge words) without a card, at small shapes.  It cannot stand in for the card: chip_smoke.py
+sums, scans and edge words, the lane parser's roots, slow path, rings and
+chunk schedule) without a card, at small shapes.  The lane parser's
+plain model of its table decode is held against the twin's length
+counting on every 15-bit pattern.  It cannot stand in for the card: chip_smoke.py
 builds the same sources with nvcc and holds them against the same twins
 there.  Without g++ the tests skip.
 """
@@ -20,6 +25,8 @@ import torch
 from moonbit_flate_tpu_torch import native
 from moonbit_flate_tpu_torch.inflate.cuda_inflate import scan_tokens
 from moonbit_flate_tpu_torch.kernels import emulate
+from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
+from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
 from moonbit_flate_tpu_torch.ops import pack as TK
 from moonbit_flate_tpu_torch.ops import parse as TP
 from moonbit_flate_tpu_torch.ops import pipeline as TPL
@@ -257,7 +264,6 @@ def test_emulated_packs_equal_twins(B, NU):
     width 28, a row whose bits run past n_words; NU a multiple of the
     tile, not one, and tiny."""
     batch = _entry("pack", "pack_batch_launch", TK._ARGTYPES_BATCH)
-    single = _entry("pack", "pack_launch", TK._ARGTYPES)
     rng = np.random.default_rng(NU)
     w = rng.integers(0, TK.MAX_WIDTH + 1, (B, NU)).astype(np.int32)
     w[rng.random((B, NU)) < 0.6] = 0
@@ -267,18 +273,129 @@ def test_emulated_packs_equal_twins(B, NU):
     v = rng.integers(-2**31, 2**31, (B, NU), dtype=np.int64).astype(np.int32)
     n_words = int(w[0].sum()) // 32 + 2        # row 0 fits, longer rows are cut
     vals, wids = torch.from_numpy(v), torch.from_numpy(w)
-    words, bits, sums = TK._batch_buffers(B, NU, n_words, "cpu")
-    words.fill_(0x5A5A5A5A)
-    bits.fill_(-7)
-    assert batch(vals.data_ptr(), wids.data_ptr(), words.data_ptr(), bits.data_ptr(),
-                 sums.data_ptr(), B, NU, n_words, TK.ALL_PASSES, None) == 0
+
+    def run(vals, wids):
+        rows = vals.shape[0]
+        words, bits, sums = TK._batch_buffers(rows, NU, n_words, "cpu")
+        words.fill_(0x5A5A5A5A)
+        bits.fill_(-7)
+        assert batch(vals.data_ptr(), wids.data_ptr(), words.data_ptr(), bits.data_ptr(),
+                     sums.data_ptr(), rows, NU, n_words, TK.ALL_PASSES, None) == 0
+        return words, bits
+
+    words, bits = run(vals, wids)
     want_words, want_bits = TK.pack_units_batch_ref(vals, wids, n_words)
     assert torch.equal(words, want_words) and torch.equal(bits, want_bits)
     if B > 2:
         assert int(want_bits[2]) > 32 * n_words
+    # the one-row call that pack_units_dense makes, against its own twin
     for b in range(B):
-        offsets, _ = TK._offsets(wids[b])
-        row = torch.zeros(n_words, dtype=torch.int32)
-        assert single(vals[b].contiguous().data_ptr(), wids[b].contiguous().data_ptr(),
-                      offsets.data_ptr(), row.data_ptr(), NU, n_words, None) == 0
-        assert torch.equal(row, TK.pack_units_ref(vals[b], wids[b], n_words)[0])
+        row, total = run(vals[b:b + 1].contiguous(), wids[b:b + 1].contiguous())
+        want_row, want_total = TK.pack_units_ref(vals[b], wids[b], n_words)
+        assert torch.equal(row[0], want_row) and torch.equal(total[0], want_total)
+
+
+# ---------------------------------------------------------------------------
+# the lane kernels
+# ---------------------------------------------------------------------------
+
+def _lane_streams():
+    """The lane and rule cases, zlib level-1 and level-9 shards of text and
+    records, and empty streams for the rest of one wave."""
+    data = _corpus(24 * LI.SEGB, 11)
+    shards = [data[i * LI.SEGB:(i + 1) * LI.SEGB] for i in range(24)]
+    return lane_cases() + rule_cases() + [zlib.compress(sh, 1 + 8 * (i % 2))[2:-4]
+                                          for i, sh in enumerate(shards)]
+
+
+@pytest.fixture(scope="module")
+def lanes_emulated():
+    parse = _entry("lanes_parse", "lanes_parse_launch", LI._ARGTYPES)
+    resolve = _entry("lanes_resolve", "lanes_resolve_launch", LR._ARGTYPES)
+    nbits, inw = LI.stage_streams_lanes(_lane_streams(), 1, device="cpu")
+    # what the kernels do not write shows as a difference
+    tok = torch.full((1, LI.TOK_CHUNKS, 128, LI.SUB, LI.LANE), 0x5A5A5A5A, dtype=torch.int32)
+    misc = torch.full((1, 4, LI.SUB, LI.LANE), -99, dtype=torch.int32)
+    scratch = torch.full((LI.NSTR * LI.SCRATCH,), 0x5A5A5A5A, dtype=torch.int32)
+    assert parse(nbits.data_ptr(), inw.data_ptr(), tok.data_ptr(), misc.data_ptr(),
+                 scratch.data_ptr(), LI.NSTR, None) == 0
+    want_tok, want_misc = LI.parse_waves_ref(nbits, inw, 1)
+    # the resolver on the twin's tokens, so that each kernel is held alone
+    tok_lm = want_tok.permute(0, 1, 3, 4, 2).reshape(1, LI.TOK_CHUNKS, LI.NSTR, LI.LANE)
+    tok_lm = tok_lm.contiguous()
+    outlen = want_misc[:, 1].contiguous()
+    out = torch.full((1, LR.GROUPS, LI.NSTR, LI.LANE), 0x5A5A5A5A, dtype=torch.int32)
+    assert resolve(outlen.data_ptr(), tok_lm.data_ptr(), out.data_ptr(), LI.NSTR,
+                   None) == 0
+    return {"tok": (tok, want_tok), "misc": (misc, want_misc),
+            "out": (out, LR.resolve_waves_ref(outlen, tok_lm, 1))}
+
+
+def test_emulated_lanes_parse_tokens_equal_twin(lanes_emulated):
+    got, want = lanes_emulated["tok"]
+    bad = (got != want).reshape(LI.TOK_ROWS, LI.NSTR).any(0).nonzero()[:, 0].tolist()
+    assert not bad, f"streams whose tokens differ: {bad[:20]}"
+
+
+@pytest.mark.parametrize("row", [0, 1, 2])
+def test_emulated_lanes_parse_misc_equals_twin(lanes_emulated, row):
+    got, want = lanes_emulated["misc"]
+    assert torch.equal(got[:, row], want[:, row])
+    if row == 0:
+        assert set(want[0, 0].reshape(-1).tolist()) == {
+            LI.ST_DONE, LI.ST_CORRUPT, LI.ST_TRUNC, LI.ST_OVERFLOW}
+    assert not got[:, 3].any()
+
+
+def test_emulated_lanes_resolve_equals_twin(lanes_emulated):
+    got, want = lanes_emulated["out"]
+    assert torch.equal(got, want)
+
+
+def _first_tables():
+    """The tables of the first block of every stream that opens with a
+    Huffman block and builds it: (name, fc, base, rank entries, root bits)
+    for each alphabet."""
+    streams = _lane_streams()
+    st = LI._Lanes(*LI.stage_streams_lanes(streams, 1, device="cpu"), 1)
+    n = len(streams)
+    typ = (st.words[:n, 0] >> 1) & 3
+    out = []
+    for dyn in (False, True):
+        idx = (typ == (2 if dyn else 1)).nonzero()[:, 0]
+        _, ok, (fcl, bal, fcd, bad), (maplit, mapdist) = LI._huffman_build(
+            st.words[idx], st.nbits[idx], torch.full((len(idx),), dyn), torch.full_like(idx, 3))
+        bits = LI.DYN_ROOT_BITS if dyn else LI.FIX_ROOT_BITS
+        for k in ok.nonzero()[:, 0].tolist()[: None if dyn else 1]:
+            i = int(idx[k])
+            out.append((f"stream {i} literal/length", fcl[k], bal[k], maplit[k], bits[0]))
+            out.append((f"stream {i} distance", fcd[k], bad[k], mapdist[k], bits[1]))
+    return out
+
+
+def test_lanes_root_decode_model_equals_length_counting():
+    """Every 15-bit pattern through the kernel's table decode (the root,
+    else length counting) and through the twin's length counting, on the
+    fixed code and on each dynamic code the cases open with: among them
+    codes longer than the root and one distance code of length 1."""
+    lo = torch.arange(1 << 15, dtype=torch.int64)
+    tables = _first_tables()
+    slow_patterns = 0
+    for name, fc, base, entries, bits in tables:
+        root = LI.root_table_ref(fc, base, entries, bits)
+        ln, entry, matched = LI.root_decode_ref(lo, root, bits, fc, base, entries)
+        w_ln, w_rank, w_matched = LI._length_decode(lo, fc.expand(len(lo), -1),
+                                                    base.expand(len(lo), -1))
+        w_entry = entries[w_rank.clamp(max=len(entries) - 1)]
+        assert torch.equal(matched, w_matched), name
+        assert torch.equal(ln[matched], w_ln[matched]), name
+        assert torch.equal(entry[matched], w_entry[matched]), name
+        slow = root[0][lo & ((1 << bits) - 1)] == 0
+        slow_patterns += int((slow & matched).sum())
+        if bits in LI.FIX_ROOT_BITS:
+            assert not slow.any(), f"{name}: the fixed root misses a code"
+    halves = [name for name, fc, *_ in tables
+              if int(fc[0]) & 511 == 1 and not (fc[1:] & 511).any()]
+    assert halves, "no distance code of one code of length 1"
+    assert slow_patterns > 0, "no code longer than its root"
+    assert len(tables) > 10
