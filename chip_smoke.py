@@ -17,14 +17,20 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    launched there; then a preset-dictionary case, a halo case, and the
    card against the plain route on a small input; times it all;
 4. decode: runs kernel A (``lanes_parse``) and kernel BC
-   (``lanes_resolve``) at the main path's 32 waves, the last wave
-   holding corrupt, truncated and overflowing streams, and holds the
-   first and last waves against their twins; drives the decode main
-   path, ``decompress_shards`` over 32 x 1024 zlib level-1 shards of
-   4096 bytes (128 MiB decoded), checks the bytes against the corpus
-   and that both kernels were launched there; times it all, the parse
-   kernel also alone, and one decode in parts, the staging and the
-   readback also through pageable memory as they were made before;
+   (``lanes_resolve``, through both entries: kernel A's step-major
+   tokens and the lane-major rows) at the main path's 32 waves, the
+   last wave holding corrupt, truncated and overflowing streams, and
+   holds the first and last waves against their twins, then kernel BC
+   on the hand-made token rows of ``utils/lane_cases.token_cases``;
+   drives the decode main path, ``decompress_shards`` over 32 x 1024
+   zlib level-1 shards of 4096 bytes (128 MiB decoded), checks the
+   bytes against the corpus and that each kernel was launched once
+   there; times it all, the parse kernel also alone, kernel BC, the
+   relayout of kernel A's tokens that the main path no longer makes,
+   and one decode in parts, the staging also as it was made
+   before (every stream's padded words through a zeroed pinned buffer)
+   and through pageable memory, the readback also through pageable
+   memory;
 5. scalar decode: one launch of the parse kernel over 64 zlib level-1
    streams of 1,048,560-byte segments with the case streams of
    ``utils/stream_cases.py`` appended (every block type and error rule,
@@ -176,8 +182,9 @@ def profile_main_path(label, fn, warm=None):
         return
     host_calls = {k: sum(c for name, (_, c) in on_host.items() if k in name)
                   for k in ("cudaLaunchKernel", "Synchronize")}
+    n_device = sum(c for _, c in on_device.values())
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {n_device} device kernels and copies, "
           f"{host_calls['cudaLaunchKernel']} cudaLaunchKernel calls, "
           f"{host_calls['Synchronize']} synchronizing calls")
     for name, (t, c) in sorted(on_device.items(), key=lambda kv: -kv[1][0])[:6]:
@@ -381,7 +388,8 @@ def decode_phase(dev):
     from moonbit_flate_tpu_torch import decompress_shards
     from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
     from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
-    from moonbit_flate_tpu_torch.utils.lane_cases import lane_cases, rule_cases
+    from moonbit_flate_tpu_torch.utils.lane_cases import (lane_cases, rule_cases,
+                                                           token_cases, token_wave)
 
     t0 = time.time()
     waves = DEC_WAVES
@@ -393,16 +401,30 @@ def decode_phase(dev):
           f"{sum(map(len, zstreams))} compressed, made in {time.time() - t0:.1f} s",
           flush=True)
 
-    def relayout(tok):
-        return tok.permute(0, 1, 3, 4, 2).reshape(
-            tok.shape[0], LI.TOK_CHUNKS, LI.NSTR, LI.LANE).contiguous()
+    def stage_pinned_loop(streams):
+        """The staging as it was made before, for the breakdown: a zeroed
+        pinned buffer of every stream's IN_W words, filled in a Python
+        loop, all of it copied to the card and laid out there."""
+        stride = LI.IN_W * 4
+        host = torch.zeros(n_sh * stride, dtype=torch.uint8, pin_memory=True)
+        buf = memoryview(host.numpy())
+        nbits = np.zeros(n_sh, np.int32)
+        for i, z in enumerate(streams):
+            buf[i * stride: i * stride + len(z)] = z
+            nbits[i] = len(z) * 8
+        words = host.view(torch.int32).reshape(waves, LI.NSTR, LI.IN_CHUNKS, LI.LANE)
+        return (torch.from_numpy(nbits.reshape(waves, LI.SUB, LI.LANE)).to(dev),
+                words.to(dev, non_blocking=True).permute(0, 2, 1, 3).contiguous())
 
     # ---- kernels against their twins at the main path's shape -----------
     # 32 waves of corpus shards, except that the last wave opens with the
     # lane-test cases and the error-rule streams.  Each kernel runs once
-    # on all 32 waves; its twin runs on the first wave and the last (one
-    # two-wave call, as the twins cost per step, not per stream), and
-    # tok, misc rows 0-2 and out must agree exactly.
+    # on all 32 waves, kernel BC through both entries (kernel A's
+    # step-major tokens, and the same rows relaid lane-major); the twins
+    # run on the first wave and the last (one two-wave call, as the twins
+    # cost per step, not per stream), and tok, misc rows 0-2 and out must
+    # agree exactly.  Then kernel BC alone on one wave of hand-made token
+    # rows (``utils/lane_cases.token_cases``), both entries.
     t0 = time.time()
     cases = lane_cases() + rule_cases()
     last = n_sh - LI.NSTR
@@ -419,17 +441,27 @@ def decode_phase(dev):
     for want in (LI.ST_DONE, LI.ST_CORRUPT, LI.ST_TRUNC, LI.ST_OVERFLOW):
         if want not in kinds:
             raise AssertionError(f"check wave never reached status {want}: {kinds}")
-    tok_lmc = relayout(tok)
+    tok_lmc = LR.lane_major(tok)
     outlenc = misc[:, 1].contiguous()
-    outc = LR.resolve_waves(outlenc, tok_lmc, waves)
-    resolve_err = max_abs_err(
-        (outc[sel],), (LR.resolve_waves_ref(outlenc[sel], tok_lmc[sel], 2),))
-    if resolve_err:
+    outc = LR.resolve_steps(outlenc, tok, waves)
+    out_lm = LR.resolve_waves(outlenc, tok_lmc, waves)
+    want = LR.resolve_waves_ref(outlenc[sel], tok_lmc[sel], 2)
+    resolve_err = max(max_abs_err((outc[sel],), (want,)), max_abs_err((out_lm[sel],), (want,)))
+    if resolve_err or not torch.equal(out_lm, outc):
         raise AssertionError(f"lanes_resolve kernel differs from its twin: {resolve_err}")
+    cases = token_cases()
+    outlen_t, tok_t = (torch.from_numpy(a).to(dev) for a in token_wave(cases))
+    want = LR.resolve_waves_ref(outlen_t, LR.lane_major(tok_t), 1)
+    cases_err = max(max_abs_err((LR.resolve_steps(outlen_t, tok_t, 1),), (want,)),
+                    max_abs_err((LR.resolve_waves(outlen_t, LR.lane_major(tok_t), 1),), (want,)))
+    if cases_err:
+        raise AssertionError(f"lanes_resolve kernel differs from its twin on the token "
+                             f"cases: {cases_err}")
     print(f"lanes_parse, lanes_resolve: {waves} waves in one launch each; waves "
-          f"{sel} equal to the twins (statuses of the last wave {kinds}) in "
-          f"{time.time() - t0:.1f} s", flush=True)
-    del check, nbc, inwc, tok, misc, tok_r, misc_r, tok_lmc, outlenc, outc
+          f"{sel} equal to the twins (statuses of the last wave {kinds}), lanes_resolve "
+          f"through both entries; {len(cases)} token cases equal to the twin through both "
+          f"entries; in {time.time() - t0:.1f} s", flush=True)
+    del check, nbc, inwc, tok, misc, tok_r, misc_r, tok_lmc, outlenc, outc, out_lm
 
     # ---- main path: counts from 0, one decode, counts read after ------------
     sizes = [LI.SEGB] * n_sh
@@ -445,6 +477,8 @@ def decode_phase(dev):
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"decode main path never launched the {name} kernel")
+    if launches != {"lanes_parse": 1, "lanes_resolve": 1}:
+        raise AssertionError(f"decode main path launched {launches}, not one of each")
     print(f"decode main path: {n_sh} shards -> {len(corpus)} bytes, all DONE, in "
           f"{first_s:.3f} s, launches {launches}", flush=True)
 
@@ -458,11 +492,13 @@ def decode_phase(dev):
           f"{len(corpus) / dec_s / 1e6:.2f} MB/s", flush=True)
     profile_main_path("decode", lambda: decompress_shards(zstreams, sizes))
 
-    # one decode in parts: staging (host, then the copy to the card), the
-    # kernels with the token relayout, the status readback, the kept bytes
-    # (gather, copy to the host through a pinned buffer) and their split
-    # into bytes objects; then, on the same streams, the staging and the
-    # copy as they were made before, through pageable host memory
+    # one decode in parts: staging (the streams' bytes to the card, the
+    # words cut out there), both kernels, the status readback, the kept
+    # bytes (gather, copy to the host through a pinned buffer) and their
+    # split into bytes objects; then, on the same streams, the staging as
+    # it was made before (every stream's padded words through a zeroed
+    # pinned buffer) and the staging and the copy through pageable host
+    # memory
     del dec2
     marks = []
 
@@ -482,6 +518,8 @@ def decode_phase(dev):
     if LR._split(flat, n) != dec:
         raise AssertionError("decode in parts differs from decompress_shards")
     mark()
+    nb_loop, inw_loop = stage_pinned_loop(zstreams)
+    mark()
     buf = bytearray(waves * LI.NSTR * LI.IN_W * 4)
     for i, z in enumerate(zstreams):
         buf[i * LI.IN_W * 4: i * LI.IN_W * 4 + len(z)] = z
@@ -494,30 +532,35 @@ def decode_phase(dev):
     t0 = time.time()
     flat_pageable = rows[keep].cpu().numpy()
     marks.append(time.time())
-    if not torch.equal(inw_pageable, inw) or flat_pageable.tobytes() != flat.tobytes():
-        raise AssertionError("pinned and pageable staging or readback differ")
+    if not (torch.equal(inw_pageable, inw) and torch.equal(inw_loop, inw)
+            and torch.equal(nb_loop, nb)) or flat_pageable.tobytes() != flat.tobytes():
+        raise AssertionError("the three stagings or the two readbacks differ")
     parts = np.diff(marks) * 1e3
     parts[-1] = (marks[-1] - t0) * 1e3
     print("decode breakdown: staging {:.1f} ms, inflate_waves {:.1f} ms, status "
           "readback {:.1f} ms, kept bytes to the host (pinned) {:.1f} ms, split into "
-          "bytes {:.1f} ms; total {:.1f} ms; the same through pageable memory: staging "
-          "{:.1f} ms, kept bytes to the host {:.1f} ms".format(
+          "bytes {:.1f} ms; total {:.1f} ms; staging as before (padded words through "
+          "pinned memory) {:.1f} ms, equal inw; through pageable memory: staging {:.1f} "
+          "ms, kept bytes to the host {:.1f} ms".format(
               *parts[:5], parts[:5].sum(), *parts[5:]), flush=True)
-    del buf, inw_pageable, rows, keep, flat, flat_pageable
+    del buf, inw_pageable, rows, keep, flat, flat_pageable, nb_loop, inw_loop
 
     tok, misc = LI.parse_waves(nb, inw, waves)
     if not bool((misc[:, 0] == LI.ST_DONE).all()):
         raise AssertionError("decode statuses are not all DONE")
-    tok_lm = relayout(tok)
     outlen = misc[:, 1].contiguous()
-    out = LR.resolve_waves(outlen, tok_lm, waves)
+    out = LR.resolve_steps(outlen, tok, waves)
     parse_ms = cuda_ms(lambda: LI.parse_waves(nb, inw, waves), 3)
     bufs = LI._buffers(waves, dev)
     parse_alone_ms = cuda_ms(lambda: LI._launch(nb, inw, waves, bufs), 3)
     if max_abs_err(bufs[:2], (tok, misc)):
         raise AssertionError("lanes_parse called alone differs from the wrapper")
     del bufs
-    resolve_ms = cuda_ms(lambda: LR.resolve_waves(outlen, tok_lm, waves), 5)
+    resolve_ms = cuda_ms(lambda: LR.resolve_steps(outlen, tok, waves), 5)
+    # what the main path no longer does: kernel A's tokens relaid
+    # lane-major (the JAX kernel's input)
+    relayout_ms = cuda_ms(lambda: LR.lane_major(tok), 5)
+    tok_lm = LR.lane_major(tok)
     parse_plain_ms = cuda_ms(lambda: LI.parse_waves_ref(nb[:1], inw[:1], 1), 1, warm=False)
     resolve_plain_ms = cuda_ms(
         lambda: LR.resolve_waves_ref(outlen[:1], tok_lm[:1], 1), 1, warm=False)
@@ -542,7 +585,10 @@ def decode_phase(dev):
     resolve_ops = 4 * len(corpus) + 8 * (n_lit + n_match)
     print(f"lanes_parse {parse_ms:.4f} ms ({waves} waves) as the wrapper is called, the "
           f"kernel alone {parse_alone_ms:.4f} ms, twin {parse_plain_ms:.1f} ms "
-          f"(1 wave); lanes_resolve {resolve_ms:.4f} ms, twin {resolve_plain_ms:.1f} ms; "
+          f"(1 wave); lanes_resolve {resolve_ms:.4f} ms on kernel A's step-major tokens, "
+          f"twin {resolve_plain_ms:.1f} ms; "
+          f"the relayout to lane-major alone {relayout_ms:.4f} ms "
+          f"({2 * tok.numel() * 4} bytes read and written); "
           f"{n_lit} literals, {n_match} matches; bound bytes: lanes_parse "
           f"{parse_bytes} ({in_words} input words), lanes_resolve {resolve_bytes} "
           f"({rows_read} token rows)", flush=True)

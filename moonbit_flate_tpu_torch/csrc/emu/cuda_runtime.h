@@ -32,8 +32,10 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct alignas(8) uint2 { uint32_t x, y; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return uint4{a, b, c, d}; }
 inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 typedef void* cudaStream_t;
@@ -45,6 +47,10 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 // every launch gets the dynamic shared memory it asks for
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+
+// the read-only path is a plain load here
+template <class T>
+inline T __ldg(const T* p) { return *p; }
 
 // shared and global words alike: the host's atomic on plain memory
 inline unsigned atomicOr(unsigned* a, unsigned v) { return __atomic_fetch_or(a, v, __ATOMIC_RELAXED); }
@@ -142,6 +148,14 @@ inline unsigned __match_any_sync(unsigned, int v) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i)
     if (emu_warp->slot[i] == (uint64_t)(int64_t)v) r |= 1u << i;
+  emu_warp->bar.wait();
+  return r;
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  emu_warp->slot[emu_lane] = (uint64_t)(int64_t)v;
+  emu_warp->bar.wait();
+  int r = v;
+  for (int i = 0; i < 32; ++i) r = std::min(r, (int)(int64_t)emu_warp->slot[i]);
   emu_warp->bar.wait();
   return r;
 }

@@ -83,26 +83,40 @@ def stage_streams_lanes(streams, waves: int, device=None):
     nbits int32[waves, 8, 128] (stream r of a wave at (r // 128,
     r % 128)) and inw int32[waves, IN_CHUNKS, 1024, 128] (word w of
     stream r at [wave, w // 128, r, w % 128]), zero past each stream.
-    For the card the streams are written into one pinned host buffer that
-    goes over in one non-blocking copy; the relayout runs on the card.
+    Only the streams' bytes go to the device, joined end to end in one
+    host buffer (pinned for the card, a wave at a time) and one
+    non-blocking copy; there each stream's IN_W words are cut out of them
+    (a window of IN_W * 4 bytes at the stream's offset, zero past its
+    end) and laid out.
     ``device=None`` means the card."""
     dev = resolve_device(device)
     B = waves * NSTR
     stride = IN_W * 4
     if len(streams) > B:
         raise ValueError(f"{len(streams)} streams do not fit in {waves} waves")
-    host = torch.empty(B * stride, dtype=torch.uint8, pin_memory=dev.type == "cuda")
-    host.zero_()
-    buf = memoryview(host.numpy())
-    nbits = np.zeros(B, np.int32)
-    for i, s in enumerate(streams):
-        if len(s) > stride:
-            raise ValueError(f"stream {i}: {len(s)} bytes > {stride}")
-        buf[i * stride: i * stride + len(s)] = s
-        nbits[i] = len(s) * 8
-    words = host.view(torch.int32).reshape(waves, NSTR, IN_CHUNKS, LANE)
-    return (torch.from_numpy(nbits.reshape(waves, SUB, LANE)).to(dev),
-            words.to(dev, non_blocking=True).permute(0, 2, 1, 3).contiguous())
+    lens = np.zeros(B, np.int64)
+    lens[:len(streams)] = np.fromiter(map(len, streams), np.int64, len(streams))
+    if (lens > stride).any():
+        i = int(np.argmax(lens > stride))
+        raise ValueError(f"stream {i}: {lens[i]} bytes > {stride}")
+    # a window of stride bytes starts at every stream's offset
+    host = torch.empty(int(lens.sum()) + stride, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    buf, o = host.numpy(), 0
+    # a wave's streams joined at a time: the join's memory comes back from
+    # the heap, where one join of all of them would touch fresh pages
+    for k in range(0, len(streams), NSTR):
+        part = np.frombuffer(b"".join(streams[k:k + NSTR]), np.uint8)
+        buf[o:o + len(part)] = part
+        o += len(part)
+    buf[o:] = 0
+    joined = host.to(dev, non_blocking=True)
+    n = torch.from_numpy(lens).to(dev, non_blocking=True)
+    rows = joined.unfold(0, stride, 1).index_select(0, torch.cumsum(n, 0) - n)
+    rows.masked_fill_(torch.arange(stride, device=dev)[None, :] >= n[:, None], 0)
+    words = rows.view(torch.int32).reshape(waves, NSTR, IN_CHUNKS, LANE)
+    return ((n * 8).to(torch.int32).reshape(waves, SUB, LANE),
+            words.permute(0, 2, 1, 3).contiguous())
 
 
 # ---------------------------------------------------------------------------

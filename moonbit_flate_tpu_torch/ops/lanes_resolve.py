@@ -2,18 +2,23 @@
 and the shard decode built on kernels A and BC.
 
 Port of ``moonbit_flate_tpu/ops/lanes_resolve.py``.  Kernel BC expands
-each stream's token records (kernel A's output, relaid lane-major) into
-its output bytes: byte p < outlen is its literal or the byte ``dist``
-before it, overlapping copies (len > dist) byte by byte; bytes past
-outlen are 0.  A match record with length 0 stands for one 0 byte, and
-a source before the stream's start (or a distance of 0) reads as 0;
-kernel A never emits either.
+each stream's token records (kernel A's output) into its output bytes:
+byte p < outlen is its literal or the byte ``dist`` before it,
+overlapping copies (len > dist) byte by byte; bytes past outlen are 0.
+A match record with length 0 stands for one 0 byte, and a source before
+the stream's start (or a distance of 0) reads as 0; kernel A never
+emits either.
 
-``resolve_waves`` launches ``csrc/lanes_resolve.cu`` (one warp per
-stream, its 4 KiB history in shared memory) for CUDA tensors;
-``resolve_waves_ref`` is the plain PyTorch twin, one output byte of
-every stream per loop iteration, and the wrapper takes it for CPU
-tensors only.  ``decompress_shards`` is the entry point.
+``resolve_steps`` launches ``csrc/lanes_resolve.cu`` (a block of 8
+streams, a warp a stream, its 4 KiB history in shared memory, token
+tiles loaded ahead) for CUDA tensors, on kernel A's step-major token
+buffer as ``parse_waves`` returns it (the main path).
+``resolve_waves`` takes the lane-major rows that the JAX package's
+``resolve_waves`` takes, relays them step-major and calls
+``resolve_steps`` (for checks only).  ``resolve_waves_ref`` is the
+plain PyTorch twin, one output byte of every stream per loop iteration,
+and the wrappers take it for CPU tensors only.  ``decompress_shards``
+is the entry point.
 """
 
 from __future__ import annotations
@@ -32,10 +37,25 @@ from .lanes_inflate import (IN_W, LANE, NSTR, SEGB, ST_DONE, ST_OVERFLOW,
 
 GROUPS = SEGB // 512       # output word planes: 128 words of each stream each
 
-launches = 0  # kernel launches made by resolve_waves
+launches = 0  # kernel launches made by resolve_steps
 
-# outlen, tok_lm, out, n_streams, stream
+# outlen, tok, out, waves, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def lane_major(tok: torch.Tensor) -> torch.Tensor:
+    """Kernel A's step-major token rows int32[waves, TOK_CHUNKS, 128, 8,
+    128] relaid lane-major, int32[waves, TOK_CHUNKS, 1024, 128]: the
+    input of the JAX package's ``resolve_waves``."""
+    return tok.permute(0, 1, 3, 4, 2).reshape(
+        tok.shape[0], TOK_CHUNKS, NSTR, LANE).contiguous()
+
+
+def step_major(tok_lm: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``lane_major``: lane-major rows relaid as kernel A
+    writes them."""
+    return tok_lm.reshape(tok_lm.shape[0], TOK_CHUNKS, SUB, LANE, 128).permute(
+        0, 1, 4, 2, 3).contiguous()
 
 
 def resolve_waves_ref(outlen: torch.Tensor, tok_lm: torch.Tensor, waves: int):
@@ -73,41 +93,54 @@ def resolve_waves_ref(outlen: torch.Tensor, tok_lm: torch.Tensor, waves: int):
 
 
 def resolve_waves(outlen: torch.Tensor, tok_lm: torch.Tensor, waves: int):
-    """Kernel BC over ``waves`` waves.
+    """Kernel BC over ``waves`` waves, lane-major input.
 
     outlen: int32[waves, 8, 128] per-stream output byte counts (``misc``
     row 1); tok_lm: int32[waves, TOK_CHUNKS, 1024, 128] lane-major token
     rows (row k of stream r at [w, k // 128, r, k % 128]).  Returns
     int32[waves, GROUPS, 1024, 128] output words (word w of stream r at
-    [wave, w // 128, r, w % 128]).  One launch of ``csrc/lanes_resolve.cu``
-    for CUDA tensors; the plain twin for CPU tensors."""
+    [wave, w // 128, r, w % 128]).  For CUDA tensors, the rows relaid
+    step-major and ``resolve_steps``; the plain twin for CPU tensors."""
     if not tok_lm.is_cuda:
         return resolve_waves_ref(outlen, tok_lm, waves)
+    if tok_lm.shape != (waves, TOK_CHUNKS, NSTR, LANE):
+        raise ValueError(f"resolve_waves takes int32[{waves}, {TOK_CHUNKS}, {NSTR}, {LANE}] "
+                         f"tokens, not {list(tok_lm.shape)}")
+    return resolve_steps(outlen, step_major(tok_lm), waves)
+
+
+def resolve_steps(outlen: torch.Tensor, tok: torch.Tensor, waves: int):
+    """Kernel BC over ``waves`` waves on kernel A's token buffer as
+    ``parse_waves`` returns it: tok int32[waves, TOK_CHUNKS, 128, 8, 128]
+    (row k of stream r at [w, k // 128, k % 128, r // 128, r % 128]).
+    Same output as ``resolve_waves`` on ``lane_major(tok)``, without that
+    copy on the card.  One launch of ``csrc/lanes_resolve.cu`` for CUDA
+    tensors; the plain twin for CPU tensors."""
     global launches
-    if outlen.dtype != torch.int32 or tok_lm.dtype != torch.int32 \
-            or outlen.shape != (waves, SUB, LANE) \
-            or tok_lm.shape != (waves, TOK_CHUNKS, NSTR, LANE):
-        raise ValueError("resolve_waves takes int32[waves, 8, 128] outlen and "
-                         "int32[waves, TOK_CHUNKS, 1024, 128] tok_lm")
+    if not tok.is_cuda:
+        return resolve_waves_ref(outlen, lane_major(tok), waves)
+    tok_shape = (waves, TOK_CHUNKS, 128, SUB, LANE)
+    if outlen.dtype != torch.int32 or tok.dtype != torch.int32 \
+            or outlen.shape != (waves, SUB, LANE) or tok.shape != tok_shape:
+        raise ValueError(f"lanes_resolve takes int32[waves, 8, 128] outlen and "
+                         f"int32{list(tok_shape)} tokens")
     outlen = outlen.contiguous()
-    tok_lm = tok_lm.contiguous()
-    out = torch.empty(waves, GROUPS, NSTR, LANE, dtype=torch.int32, device=tok_lm.device)
+    tok = tok.contiguous()
+    if tok.data_ptr() % 16:            # the kernel loads 16 bytes at a time
+        tok = tok.clone()
+    out = torch.empty(waves, GROUPS, NSTR, LANE, dtype=torch.int32, device=tok.device)
     fn = build.entry("lanes_resolve", "lanes_resolve_launch", _ARGTYPES)
-    build.check(fn(outlen.data_ptr(), tok_lm.data_ptr(), out.data_ptr(),
-                   waves * NSTR, torch.cuda.current_stream(tok_lm.device).cuda_stream),
-                "lanes_resolve")
+    build.check(fn(outlen.data_ptr(), tok.data_ptr(), out.data_ptr(), waves,
+                   torch.cuda.current_stream(tok.device).cuda_stream), "lanes_resolve")
     launches += 1
     return out
 
 
 def inflate_waves(nbits: torch.Tensor, inw: torch.Tensor, waves: int):
-    """Kernel A, the step-major -> lane-major relayout of its tokens,
-    then kernel BC.  Returns (out int32[waves, GROUPS, 1024, 128], misc
-    int32[waves, 4, 8, 128])."""
+    """Kernel A, then kernel BC on its token buffer as it is.  Returns
+    (out int32[waves, GROUPS, 1024, 128], misc int32[waves, 4, 8, 128])."""
     tok, misc = parse_waves(nbits, inw, waves)
-    tok_lm = tok.permute(0, 1, 3, 4, 2).reshape(waves, TOK_CHUNKS, NSTR, LANE)
-    out = resolve_waves(misc[:, 1].contiguous(), tok_lm.contiguous(), waves)
-    return out, misc
+    return resolve_steps(misc[:, 1].contiguous(), tok, waves), misc
 
 
 def decompress_shards(streams, out_sizes, device=None):

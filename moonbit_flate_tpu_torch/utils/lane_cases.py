@@ -5,6 +5,8 @@ truncated, BTYPE=3 and 24 fuzz mutants included); ``rule_cases`` are
 hand-made streams for each error and edge rule of kernel A.  The port's
 tests hold the port against the JAX package on them, and chip_smoke.py
 holds the CUDA kernels against their plain twins on them.
+``token_cases`` are token rows made by hand for kernel BC alone, laid
+out as kernel A lays out its output by ``token_wave``.
 """
 
 from __future__ import annotations
@@ -159,3 +161,113 @@ def rule_cases():
     out.append(zlib.compress(rng.integers(0, 256, 4500, np.uint8).tobytes(), 1)[2:-4])
     out.append(zlib.compress((b"abcdefgh" * 700), 9)[2:-4])
     return out
+
+
+TOK_ROWS = 35 * 128   # token rows of a stream
+NSTR = 1024           # streams of a wave
+
+
+def lit(b):
+    """A literal record."""
+    return (1 << 30) | b
+
+
+def match(length, dist):
+    """A match record (int32 value): 1 << 31 | length << 13 | dist."""
+    return -(1 << 31) + (length << 13) + dist
+
+
+def _random_chain(rng):
+    """Short matches close behind each other, so that most of them read
+    bytes that a match of the same 32 rows writes, some overlapping."""
+    rows, pos = [lit(int(b)) for b in rng.integers(0, 256, 8)], 8
+    while pos < 3000:
+        if rng.random() < 0.3:
+            rows.append(lit(int(rng.integers(0, 256))))
+            pos += 1
+        else:
+            n, d = int(rng.integers(3, 13)), int(rng.integers(1, min(pos, 40) + 1))
+            rows += [0, match(n, d)]
+            pos += n
+    return rows, pos
+
+
+def token_cases():
+    """(group, outlen, rows) for kernel BC alone: rows are one stream's
+    token records in order, 0 for a gap row, at most TOK_ROWS of them.
+    The list opens with a block of 8 streams (stream 0 of 4,096 literal
+    rows, seven empty ones), so that ``token_wave`` puts them in one
+    block of the kernel.  Groups: long_block, rle (dist 1-33, len 258),
+    chain (matches reading the bytes of matches just before them),
+    edge (a length-0 record, dist 0, sources before the start, a record
+    > 0 without the literal bit, lengths past 258, matches without gap
+    rows: from the second tile of 128 rows on, a whole tile of them, in
+    the block of a stream whose matches of the first tile wait to be
+    copied meanwhile), outlen (0, exactly
+    4,096, above it, below 0, a cut inside a match, the 4,096th byte on
+    the last row), gaps (runs of gap rows across tile boundaries) and
+    random (records of every kind, outlen of every kind)."""
+    rng = np.random.default_rng(8)
+    cases = [("long_block", SEGB, [lit(int(b)) for b in rng.integers(0, 256, SEGB)])]
+    cases += [("long_block", 0, [])] * 7
+    for d in range(1, 34):
+        rows = [lit(int(b)) for b in rng.integers(0, 256, d)]
+        rows += [0, match(258, d)] * (-(-(SEGB - d) // 258))
+        cases.append(("rle", SEGB, rows))
+    for _ in range(4):
+        rows, pos = _random_chain(rng)
+        cases.append(("chain", pos, rows))
+    text = [lit(b) for b in b"abcdefgh"]
+    cases += [
+        ("edge", 8 + 1 + 1 + 7 + 1 + 25 + 50 + 511,
+         text + [match(0, 3), lit(105), match(7, 0), lit(106),
+                 match(25, 30), match(50, 40), match(511, 8191)]),
+        ("edge", 8 + 400 + 3 + 300,
+         text + [match(400, 5), 0x3FFFFF41, 0x141, 0x7FFFFF42, match(300, 1)]),
+        ("edge", 4 + 258, [lit(1), lit(2), lit(3), lit(4), match(258, 4096)]),
+        ("edge", SEGB, [lit(1), lit(2), lit(3)] + [match(3, 1 + k % 5) for k in range(1400)]),
+        ("edge", SEGB, [lit(int(b)) for b in rng.integers(0, 256, 128)]
+         + [match(3, 1 + k % 97) for k in range(1300)]),
+        ("edge", 8 + 4 * 40, text + [r for k in range(40) for r in (0, match(4, 1 + k % 8))]),
+    ]
+    letters = [lit(int(b)) for b in rng.integers(97, 123, 300)]
+    rle = [lit(7), 0, match(258, 1)] * 20
+    cases += [
+        ("outlen", 0, letters),
+        ("outlen", SEGB, rle),                   # 5,180 bytes of tokens
+        ("outlen", 5000, rle),
+        ("outlen", -7, letters),
+        ("outlen", 100, [lit(5), match(258, 1)]),
+        ("outlen", SEGB, [r for b in rng.integers(0, 256, SEGB) for r in
+                          ([0, lit(int(b))] if rng.random() < 384 / SEGB else
+                           [lit(int(b))])][:TOK_ROWS]),
+    ]
+    gap = [0] * 128
+    cases += [
+        ("gaps", 300, [0] * 200 + letters[:100] + [0] * 129 + [match(50, 60)]
+         + [0] * 300 + [lit(9)] * 149 + gap + [0, match(0, 1)]),
+        ("gaps", 2 * 127 + 1, [0] * 127 + [lit(3)] + gap + [lit(4), match(253, 2)]),
+        ("gaps", SEGB, ([0] * 3 + [lit(6)] * 5 + [0, match(100, 7)]) * 40),
+    ]
+    for _ in range(8):
+        rows = []
+        for _ in range(int(rng.integers(1, TOK_ROWS + 1))):
+            kind = rng.random()
+            rows.append(0 if kind < 0.2 else
+                        lit(int(rng.integers(0, 256))) if kind < 0.7 else
+                        match(int(rng.integers(0, 512)), int(rng.integers(0, 8192))))
+        cases.append(("random", int(rng.integers(-10, 5000)), rows))
+    return cases
+
+
+def token_wave(cases):
+    """Case i as stream i of one wave, the rest empty: outlen
+    int32[1, 8, 128] and kernel A's step-major token rows int32[1, 35,
+    128, 8, 128] (row k of stream r at [0, k // 128, k % 128, r // 128,
+    r % 128]), as numpy arrays."""
+    outlen = np.zeros(NSTR, np.int32)
+    tok = np.zeros((TOK_ROWS, NSTR), np.int32)
+    for i, (_, n, rows) in enumerate(cases):
+        outlen[i] = n
+        tok[:len(rows), i] = rows
+    return outlen.reshape(1, 8, 128), tok.reshape(1, 35, 128, 8, 128)

@@ -33,7 +33,8 @@ from moonbit_flate_tpu_torch.ops import pipeline as TPL
 from moonbit_flate_tpu_torch.ops import resolve as TR
 from moonbit_flate_tpu_torch.ops import walk as TW
 from moonbit_flate_tpu_torch.utils import stream_cases as SC
-from moonbit_flate_tpu_torch.utils.lane_cases import lane_cases, rule_cases
+from moonbit_flate_tpu_torch.utils.lane_cases import (lane_cases, rule_cases, token_cases,
+                                                       token_wave)
 
 torch.set_num_threads(1)
 
@@ -308,10 +309,21 @@ def _lane_streams():
                                           for i, sh in enumerate(shards)]
 
 
+def _resolve_emulated(outlen, tok, step_major):
+    """The emulated kernel BC on one wave, as each entry gives it its
+    input: kernel A's step-major tok as it is (``resolve_steps``), or
+    lane-major tok_lm relaid step-major (``resolve_waves``); what it does
+    not write shows as a difference."""
+    resolve = _entry("lanes_resolve", "lanes_resolve_launch", LR._ARGTYPES)
+    tok = tok if step_major else LR.step_major(tok)
+    out = torch.full((1, LR.GROUPS, LI.NSTR, LI.LANE), 0x5A5A5A5A, dtype=torch.int32)
+    assert resolve(outlen.data_ptr(), tok.data_ptr(), out.data_ptr(), 1, None) == 0
+    return out
+
+
 @pytest.fixture(scope="module")
 def lanes_emulated():
     parse = _entry("lanes_parse", "lanes_parse_launch", LI._ARGTYPES)
-    resolve = _entry("lanes_resolve", "lanes_resolve_launch", LR._ARGTYPES)
     nbits, inw = LI.stage_streams_lanes(_lane_streams(), 1, device="cpu")
     # what the kernels do not write shows as a difference
     tok = torch.full((1, LI.TOK_CHUNKS, 128, LI.SUB, LI.LANE), 0x5A5A5A5A, dtype=torch.int32)
@@ -321,14 +333,12 @@ def lanes_emulated():
                  scratch.data_ptr(), LI.NSTR, None) == 0
     want_tok, want_misc = LI.parse_waves_ref(nbits, inw, 1)
     # the resolver on the twin's tokens, so that each kernel is held alone
-    tok_lm = want_tok.permute(0, 1, 3, 4, 2).reshape(1, LI.TOK_CHUNKS, LI.NSTR, LI.LANE)
-    tok_lm = tok_lm.contiguous()
+    tok_lm = LR.lane_major(want_tok)
     outlen = want_misc[:, 1].contiguous()
-    out = torch.full((1, LR.GROUPS, LI.NSTR, LI.LANE), 0x5A5A5A5A, dtype=torch.int32)
-    assert resolve(outlen.data_ptr(), tok_lm.data_ptr(), out.data_ptr(), LI.NSTR,
-                   None) == 0
     return {"tok": (tok, want_tok), "misc": (misc, want_misc),
-            "out": (out, LR.resolve_waves_ref(outlen, tok_lm, 1))}
+            "out": (_resolve_emulated(outlen, tok_lm, False),
+                    LR.resolve_waves_ref(outlen, tok_lm, 1)),
+            "out_steps": _resolve_emulated(outlen, want_tok, True)}
 
 
 def test_emulated_lanes_parse_tokens_equal_twin(lanes_emulated):
@@ -350,6 +360,72 @@ def test_emulated_lanes_parse_misc_equals_twin(lanes_emulated, row):
 def test_emulated_lanes_resolve_equals_twin(lanes_emulated):
     got, want = lanes_emulated["out"]
     assert torch.equal(got, want)
+
+
+def test_emulated_lanes_resolve_on_step_major_tokens_equals_twin(lanes_emulated):
+    """The same kernel reading kernel A's layout as kernel A wrote it."""
+    assert torch.equal(lanes_emulated["out_steps"], lanes_emulated["out"][1])
+
+
+@pytest.fixture(scope="module")
+def token_cases_emulated():
+    """The hand-made token rows of ``utils/lane_cases.py`` through both
+    entries of the emulated kernel BC and through the twin."""
+    cases = token_cases()
+    outlen, tok = (torch.from_numpy(a) for a in token_wave(cases))
+    tok_lm = LR.lane_major(tok)
+    return {"groups": [g for g, _, _ in cases],
+            "want": LR.resolve_waves_ref(outlen, tok_lm, 1),
+            True: _resolve_emulated(outlen, tok, True),
+            False: _resolve_emulated(outlen, tok_lm, False)}
+
+
+def _stream_bytes(out, i):
+    return out[0, :, i, :].reshape(-1).numpy().astype("<u4").tobytes()
+
+
+@pytest.mark.parametrize("step_major", [True, False], ids=["step_major", "lane_major"])
+@pytest.mark.parametrize("group", ["long_block", "rle", "chain", "edge", "outlen",
+                                   "gaps", "random"])
+def test_emulated_lanes_resolve_token_cases(token_cases_emulated, group, step_major):
+    got, want = token_cases_emulated[step_major], token_cases_emulated["want"]
+    idx = [i for i, g in enumerate(token_cases_emulated["groups"]) if g == group]
+    assert idx
+    for i in idx:
+        assert _stream_bytes(got, i) == _stream_bytes(want, i), (group, i)
+    if group == "long_block":
+        assert not torch.equal(want[0, :, idx[0]], torch.zeros_like(want[0, :, idx[0]]))
+        assert not want[0, :, idx[1]:idx[-1] + 1].any()
+
+
+def test_emulated_lanes_resolve_token_cases_leave_the_rest_zero(token_cases_emulated):
+    n = len(token_cases_emulated["groups"])
+    for step_major in (True, False):
+        got = token_cases_emulated[step_major]
+        assert torch.equal(got, token_cases_emulated["want"])
+        assert not got[0, :, n:].any()
+
+
+def test_token_cases_reach_the_rules():
+    """The hand-made rows hold what their groups promise."""
+    cases = token_cases()
+    assert len(cases) <= LI.NSTR
+    assert [g for g, _, _ in cases[:8]] == ["long_block"] * 8
+    assert len(cases[0][2]) == LI.SEGB and not any(len(r) for _, _, r in cases[1:8])
+    dists = {r & 8191 for g, _, rows in cases if g == "rle" for r in rows if r < 0}
+    assert dists == set(range(1, 34))
+    outlens = {n for g, n, _ in cases if g == "outlen"}
+    assert {0, LI.SEGB}.issubset(outlens) and min(outlens) < 0 and max(outlens) > LI.SEGB
+    assert all(len(rows) <= LI.TOK_ROWS for _, _, rows in cases)
+    assert max(len(rows) for g, _, rows in cases if g == "outlen") > LI.TOK_ROWS - 128
+    # a tile of 128 match records after the first, while the next stream
+    # of the same block of 8 holds matches of its first tile in its queue
+    full = [i for i, (_, _, rows) in enumerate(cases)
+            if any(len(rows[k:k + 128]) == 128
+                   and all(r < 0 and (r >> 13) & 511 for r in rows[k:k + 128])
+                   for k in range(128, len(rows), 128))]
+    assert any(i % 8 < 7 and any(r < 0 for r in cases[i + 1][2][:128])
+               and len(cases[i + 1][2]) <= 128 for i in full)
 
 
 def _first_tables():

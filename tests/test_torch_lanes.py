@@ -115,6 +115,45 @@ def test_stage_streams_lanes_equals_jax(waves):
     assert np.array_equal(tinw.numpy(), np.asarray(jinw))
 
 
+def _staging_case(name):
+    rng = np.random.default_rng(4)
+
+    def data(n):
+        return rng.integers(0, 256, n, np.uint8).tobytes()
+
+    return {
+        "empty_stream": [data(9), b"", data(3)],
+        "exactly_in_w_words": [data(TL.IN_W * 4), data(5)],
+        "len_1_mod_4": [data(4 * k + 1) for k in range(6)],
+        "len_2_mod_4": [data(4 * k + 2) for k in range(6)],
+        "len_3_mod_4": [data(4 * k + 3) for k in range(6)],
+        "only_empty": [b""] * 3,
+        "no_streams": [],
+        "full_wave": [data(int(k)) for k in rng.integers(0, 200, TL.NSTR)],
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["empty_stream", "exactly_in_w_words", "len_1_mod_4",
+                                  "len_2_mod_4", "len_3_mod_4", "only_empty",
+                                  "no_streams", "full_wave"])
+def test_stage_streams_lanes_case_equals_jax(name):
+    """Fewer streams than a wave in all but the last case; streams of
+    bytearray and memoryview stage as bytes do."""
+    streams = _staging_case(name)
+    jnb, jinw = JL.stage_streams_lanes(streams, 1)
+    for kind in (bytes, bytearray, memoryview):
+        tnb, tinw = TL.stage_streams_lanes([kind(s) for s in streams], 1, device="cpu")
+        assert np.array_equal(tnb.numpy(), np.asarray(jnb))
+        assert np.array_equal(tinw.numpy(), np.asarray(jinw))
+
+
+def test_stage_streams_lanes_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="stream 1"):
+        TL.stage_streams_lanes([b"", bytes(TL.IN_W * 4 + 1)], 1, device="cpu")
+    with pytest.raises(ValueError, match="do not fit"):
+        TL.stage_streams_lanes([b""] * (TL.NSTR + 1), 1, device="cpu")
+
+
 def test_fixture_stages_like_jax(lanes):
     for k in ("nbits", "inw"):
         assert np.array_equal(_np(lanes["port"][k]), lanes["jax"][k])
@@ -157,6 +196,51 @@ def test_resolve_waves_on_jax_tokens(lanes):
     out = TR.resolve_waves(torch.from_numpy(j["misc"][:, 1].copy()),
                            torch.from_numpy(j["tok_lm"].copy()), 1)
     assert np.array_equal(out.numpy(), j["out"])
+
+
+def test_resolve_steps_on_jax_tokens(lanes):
+    """The port's BC on JAX's own kernel-A output as kernel A wrote it,
+    step-major, against JAX's BC on the same tokens relaid."""
+    j = lanes["jax"]
+    out = TR.resolve_steps(torch.from_numpy(j["misc"][:, 1].copy()),
+                           torch.from_numpy(j["tok"].copy()), 1)
+    assert out.dtype == torch.int32
+    assert np.array_equal(out.numpy(), j["out"])
+
+
+def test_lane_major_equals_jax_relayout(lanes):
+    j = lanes["jax"]
+    assert np.array_equal(TR.lane_major(torch.from_numpy(j["tok"].copy())).numpy(),
+                          j["tok_lm"])
+
+
+def test_step_major_inverts_lane_major(lanes):
+    """What ``resolve_waves`` gives the kernel on the card: JAX's
+    lane-major rows relaid as kernel A wrote them."""
+    j = lanes["jax"]
+    assert np.array_equal(TR.step_major(torch.from_numpy(j["tok_lm"].copy())).numpy(),
+                          j["tok"])
+
+
+def test_inflate_waves_passes_kernel_a_buffer_as_it_is(lanes, monkeypatch):
+    """No relayout between the kernels: BC gets kernel A's tensor."""
+    p = lanes["port"]
+    seen = {}
+    parse, steps = TR.parse_waves, TR.resolve_steps
+
+    def parse_spy(*a):
+        seen["tok"], misc = parse(*a)
+        return seen["tok"], misc
+
+    def steps_spy(outlen, tok, waves):
+        seen["given"] = tok
+        return steps(outlen, tok, waves)
+
+    monkeypatch.setattr(TR, "parse_waves", parse_spy)
+    monkeypatch.setattr(TR, "resolve_steps", steps_spy)
+    out, _ = TR.inflate_waves(p["nbits"], p["inw"], 1)
+    assert seen["given"] is seen["tok"]
+    assert np.array_equal(out.numpy(), lanes["jax"]["out"])
 
 
 def test_done_streams_match_zlib(lanes):
