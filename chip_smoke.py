@@ -57,7 +57,27 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    the launch counts of every kernel on that path; a one-shard case on
    the lane route; the card against the plain route; times both encode
    paths and the decode;
-7. prints a JSON line of all kernels and, last, the device line.
+7. sharded: the multi-process layer on the one card.  Drives the sharded
+   main path, ``ShardedCompressor(blocks_per_segment=16)`` over the 16 MiB
+   corpus in an NCCL world of 1 (one wave a segment), checks that zlib
+   reads it, that it equals ``CUDACompressor``'s stream and that the walk
+   and pack kernels were launched there; times and profiles it beside
+   ``CUDACompressor``; then the card against the plain route at nb = 2,
+   halo with a preset dictionary, the retry of a wave past a tight
+   ``word_cap``, and ``compress_with_manifest`` through the mesh against
+   the one-card batched form; spawns a gloo world of 2 ranks that share
+   the card (not a multi-GPU run) and holds both ranks' streams against
+   the world of 1; and round-trips the one-shot ``compress`` /
+   ``decompress`` of the 'cuda', 'native' and 'python' backends;
+8. prints a JSON line of all kernels and, last, the device line.
+
+``python3 chip_smoke.py --cards N`` needs N cards and runs only what
+exists across cards: an NCCL world of N ranks, one card each (rank r on
+``cuda:r`` through ``LOCAL_RANK``), whose streams must all equal
+``CUDACompressor``'s on card 0; and, in the main process, every kernel
+on the last card while card 0 stays current (the manifest encode and
+both decode routes).  It prints no kernel line; its last line is the
+device line.
 
 Every phase raises on failure.  Without a CUDA device it exits non-zero
 before printing any result.  Imports nothing of JAX.
@@ -604,8 +624,9 @@ def decode_phase(dev):
 
 
 def scalar_decode_phase(dev):
-    from moonbit_flate_tpu_torch import compress, decompress, decompress_segments
+    from moonbit_flate_tpu_torch import compress, decompress_segments
     from moonbit_flate_tpu_torch.inflate import cuda_inflate as CI
+    from moonbit_flate_tpu_torch.inflate.cuda_inflate import decompress
     from moonbit_flate_tpu_torch.ops import parse as P
     from moonbit_flate_tpu_torch.ops import resolve as R
     from moonbit_flate_tpu_torch.utils import stream_cases as SC
@@ -942,7 +963,7 @@ def manifest_phase(dev):
     reset()
     torch.cuda.synchronize()
     t0 = time.time()
-    stream, manifest = compress_with_manifest(corpus, nb)
+    stream, manifest = compress_with_manifest(corpus, blocks_per_segment=nb)
     enc_first_s = time.time() - t0
     back = decompress_with_manifest(stream, manifest)
     launches = counts()
@@ -971,7 +992,7 @@ def manifest_phase(dev):
     # one shard of at most 4096 bytes takes the lane route
     reset()
     small = corpus[70000:74000]
-    s_stream, s_man = compress_with_manifest(small, nb)
+    s_stream, s_man = compress_with_manifest(small, blocks_per_segment=nb)
     if decompress_with_manifest(s_stream, s_man) != small:
         raise AssertionError("one-shard manifest case does not round-trip")
     lane = counts()
@@ -980,8 +1001,8 @@ def manifest_phase(dev):
         raise AssertionError(f"one-shard manifest case launches {lane}")
     # the card against the plain route: three shards, the last one short
     tiny = corpus[3 * S: 3 * S + 2 * 2 * pipeline.BLOCK + 12345]
-    on_card = compress_with_manifest(tiny, 2, device="cuda")
-    plain = compress_with_manifest(tiny, 2, device="cpu")
+    on_card = compress_with_manifest(tiny, blocks_per_segment=2, device="cuda")
+    plain = compress_with_manifest(tiny, blocks_per_segment=2, device="cpu")
     if on_card[0] != plain[0] or on_card[1].to_dict() != plain[1].to_dict() \
             or len(plain[1].comp_sizes) != 3:
         raise AssertionError("manifest: card and plain route differ")
@@ -996,7 +1017,7 @@ def manifest_phase(dev):
         return time.time() - t0, out
 
     mb = len(corpus) / 1e6
-    man_s, out = wall_s(lambda: compress_with_manifest(corpus, nb))
+    man_s, out = wall_s(lambda: compress_with_manifest(corpus, blocks_per_segment=nb))
     if out[0] != stream:
         raise AssertionError("second manifest encode differs from the first")
     loop_s, _ = wall_s(lambda: comp.compress(corpus))
@@ -1009,7 +1030,7 @@ def manifest_phase(dev):
           f"MB/s (CUDACompressor, per-segment loop); manifest decode: {dec_s:.3f} s "
           f"= {mb / dec_s:.2f} MB/s, all for {len(corpus)} bytes", flush=True)
     profile_main_path("manifest encode (batched)",
-                      lambda: compress_with_manifest(corpus, nb))
+                      lambda: compress_with_manifest(corpus, blocks_per_segment=nb))
     profile_main_path("encode loop, same corpus", lambda: comp.compress(corpus),
                       warm=lambda: comp.compress(corpus[:2 * S]))
 
@@ -1041,7 +1062,258 @@ def manifest_phase(dev):
                          12 * B * NU)]
 
 
+GLOO_WORLD = 2              # ranks of the gloo world that share the one card
+WORLD_TIMEOUT_S = 300
+
+
+def _world_rank(backend, rank, world, store, out_path):
+    """One rank of a spawned world: the sharded compress of the 16 MiB
+    corpus, its stream written to out_path (an error's traceback in its
+    place).  Gloo ranks share the current card; an NCCL rank takes card
+    ``rank`` through ``LOCAL_RANK``, as a launcher would set it, and
+    checks that make_mesh made that card current."""
+    import datetime
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    from moonbit_flate_tpu_torch import ShardedCompressor, make_mesh
+
+    try:
+        os.environ["LOCAL_RANK"] = str(rank)
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+        try:
+            mesh = make_mesh(device="cuda" if backend == "gloo" else None)
+            if backend == "nccl" and (mesh.device.index, torch.cuda.current_device()) \
+                    != (rank, rank):
+                raise AssertionError(f"rank {rank} runs on {mesh.device}, current "
+                                     f"card {torch.cuda.current_device()}")
+            out = ShardedCompressor(mesh, blocks_per_segment=16).compress(make_corpus())
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        out = ("error: " + traceback.format_exc()).encode()
+    with open(out_path, "wb") as f:
+        f.write(out)
+
+
+def spawn_world(tmp, backend, world):
+    """Spawn a world of ``world`` ranks over ``backend``; every rank's
+    stream.  Every rank is stopped, at the latest after WORLD_TIMEOUT_S."""
+    import multiprocessing
+    import os
+
+    ctx = multiprocessing.get_context("spawn")
+    paths = [os.path.join(tmp, f"{backend}_rank{r}.bin") for r in range(world)]
+    procs = [ctx.Process(target=_world_rank,
+                         args=(backend, r, world,
+                               os.path.join(tmp, f"{backend}_store"), paths[r]))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.time() + WORLD_TIMEOUT_S + 60
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        if any(p.is_alive() for p in procs):
+            raise AssertionError(f"the {backend} world timed out")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    outs = []
+    for p, path in zip(procs, paths):
+        if not os.path.exists(path):
+            raise AssertionError(f"a {backend} rank exited with code {p.exitcode} "
+                                 f"and no result")
+        with open(path, "rb") as f:
+            outs.append(f.read())
+        if outs[-1].startswith(b"error: "):
+            raise AssertionError(f"a {backend} rank failed:\n{outs[-1].decode()}")
+    return outs
+
+
+def sharded_phase(dev):
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from moonbit_flate_tpu_torch import (CUDACompressor, ShardedCompressor, compress,
+                                         compress_with_manifest, decompress,
+                                         make_mesh)
+    from moonbit_flate_tpu_torch.ops import pack, pipeline, walk
+
+    nb = 16
+    corpus = make_corpus()
+    segs = -(-len(corpus) // (nb * pipeline.BLOCK))
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- main path: an NCCL world of 1, counts from 0, one compress ------
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+        try:
+            mesh = make_mesh()
+            sc = ShardedCompressor(mesh, blocks_per_segment=nb)
+            walk.launches = 0
+            pack.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = sc.compress(corpus)
+            first_s = time.time() - t0
+            launches = {"walk": walk.launches, "pack": pack.launches}
+            if not all(launches.values()):
+                raise AssertionError(f"sharded main path launches {launches}")
+            if zlib.decompress(out, wbits=-15) != corpus:
+                raise AssertionError("stock zlib does not read the sharded stream")
+            one = CUDACompressor(blocks_per_segment=nb).compress(corpus)
+            if out != one:
+                raise AssertionError("the sharded stream differs from CUDACompressor's")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            again = sc.compress(corpus)
+            torch.cuda.synchronize()
+            sharded_s = time.time() - t0
+            if again != out:
+                raise AssertionError("a second sharded compress differs from the first")
+            t0 = time.time()
+            CUDACompressor(blocks_per_segment=nb).compress(corpus)
+            torch.cuda.synchronize()
+            loop_s = time.time() - t0
+            mb = len(corpus) / 1e6
+            print(f"sharded main path ({mesh.backend} world of {mesh.size}, {mesh.device}): "
+                  f"{len(corpus)} -> {len(out)} bytes in {segs} waves, zlib reads it, "
+                  f"equal to CUDACompressor's; launches {launches} "
+                  f"(walk {launches['walk'] / segs:.1f} and pack "
+                  f"{launches['pack'] / segs:.1f} a wave); first call {first_s:.3f} s; "
+                  f"{sharded_s:.3f} s = {mb / sharded_s:.2f} MB/s (world 1), "
+                  f"CUDACompressor {loop_s:.3f} s = {mb / loop_s:.2f} MB/s, same corpus",
+                  flush=True)
+            profile_main_path("sharded encode (world 1)", lambda: sc.compress(corpus),
+                              warm=lambda: sc.compress(corpus[:2 * nb * pipeline.BLOCK]))
+
+            # the card against the plain route, nb = 2: three shards, one short
+            tiny = corpus[3 << 20: (3 << 20) + 2 * 2 * pipeline.BLOCK + 12345]
+            if ShardedCompressor(mesh, blocks_per_segment=2).compress(tiny) != \
+                    CUDACompressor(blocks_per_segment=2, device="cpu").compress(tiny):
+                raise AssertionError("sharded: card and plain route differ at nb = 2")
+            # halo and a preset dictionary
+            zdict = corpus[:32768]
+            part = corpus[5 << 20: (5 << 20) + 3 * nb * pipeline.BLOCK]
+            got = ShardedCompressor(mesh, nb, halo=True).compress(part, dictionary=zdict)
+            dec = zlib.decompressobj(wbits=-15, zdict=zdict)
+            if dec.decompress(got) + dec.flush() != part or got != CUDACompressor(
+                    nb, halo=True).compress(part, dictionary=zdict):
+                raise AssertionError("sharded halo + dictionary case fails")
+            # word_cap: a tight cap on incompressible bytes takes the retry
+            noise = np.random.default_rng(3).integers(
+                0, 256, 2 * nb * pipeline.BLOCK, np.uint8).tobytes()
+            capped = ShardedCompressor(mesh, nb, word_cap=4096)
+            full_step, retries = capped._step_full, []
+            capped._step_full = lambda *a: retries.append(1) or full_step(*a)
+            got = capped.compress(noise)
+            if not retries or got != ShardedCompressor(mesh, nb).compress(noise):
+                raise AssertionError(f"word_cap retry: {len(retries)} retries, "
+                                     f"bytes differ from the full cap's")
+            # the manifest through the mesh against the one-card batched form
+            m_stream, m_man = compress_with_manifest(corpus, mesh, nb)
+            b_stream, b_man = compress_with_manifest(corpus, blocks_per_segment=nb)
+            if (m_stream, m_man.to_dict()) != (b_stream, b_man.to_dict()) \
+                    or m_stream != out:
+                raise AssertionError("manifest with a mesh differs from mesh=None")
+            print(f"sharded: card vs plain at nb = 2, halo + dictionary, word_cap "
+                  f"retry ({len(retries)} waves), manifest with a mesh passed",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+
+        # ---- a gloo world of 2 ranks sharing the card: not a multi-GPU run --
+        t0 = time.time()
+        outs = spawn_world(tmp, "gloo", GLOO_WORLD)
+        if any(o != out for o in outs):
+            raise AssertionError("the gloo world's streams differ from the world of 1")
+        print(f"gloo world of {GLOO_WORLD} ranks on one card: every rank's stream "
+              f"equals the world of 1 ({time.time() - t0:.1f} s with start-up)",
+              flush=True)
+
+    # ---- the one-shot backends ---------------------------------------------
+    small = corpus[(7 << 20): (7 << 20) + (256 << 10)]
+    sizes = {}
+    for backend in ("cuda", "native", "python"):
+        c = compress(small, backend=backend)
+        if decompress(c, backend=backend) != small or zlib.decompress(c, -15) != small:
+            raise AssertionError(f"one-shot backend {backend!r} does not round-trip")
+        sizes[backend] = len(c)
+    print(f"one-shot compress / decompress round-trip for {len(small)} bytes: "
+          f"{sizes}", flush=True)
+    return []
+
+
+def multi_card_phase(cards):
+    """An NCCL world of ``cards`` ranks, a card each, against
+    ``CUDACompressor`` on card 0; then every kernel on the last card
+    while card 0 stays current."""
+    import tempfile
+
+    from moonbit_flate_tpu_torch import (CUDACompressor, compress_with_manifest,
+                                         decompress_shards, decompress_with_manifest)
+    from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
+    from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
+    from moonbit_flate_tpu_torch.ops import pack, walk
+    from moonbit_flate_tpu_torch.ops import parse as P
+    from moonbit_flate_tpu_torch.ops import resolve as R
+
+    if torch.cuda.device_count() < cards:
+        raise AssertionError(f"{cards} cards asked for, "
+                             f"{torch.cuda.device_count()} present")
+    corpus = make_corpus()
+    ref = CUDACompressor(blocks_per_segment=16).compress(corpus)
+    if zlib.decompress(ref, wbits=-15) != corpus:
+        raise AssertionError("stock zlib does not read CUDACompressor's stream")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        outs = spawn_world(tmp, "nccl", cards)
+        if any(o != ref for o in outs):
+            raise AssertionError("an NCCL rank's stream differs from CUDACompressor's")
+    print(f"nccl world of {cards} ranks, a card each: every rank's stream equals "
+          f"CUDACompressor's on card 0 ({time.time() - t0:.1f} s with start-up)",
+          flush=True)
+
+    # every kernel on a card that is not the current one
+    dev = torch.device("cuda", cards - 1)
+    mods = {"walk": walk, "pack": pack, "pack_batch": pack, "lanes_parse": LI,
+            "lanes_resolve": LR, "parse": P, "resolve": R}
+    for m in mods.values():
+        m.launches = 0
+    pack.launches_batch = 0
+    part = corpus[: 4 * SEG_BYTES]
+    stream, man = compress_with_manifest(part, blocks_per_segment=16, device=dev)
+    one = CUDACompressor(blocks_per_segment=16, device=dev).compress(part)
+    if stream != one or decompress_with_manifest(stream, man, device=dev) != part:
+        raise AssertionError(f"the manifest pair on {dev} fails")
+    shards = [corpus[i * LI.SEGB:(i + 1) * LI.SEGB] for i in range(LI.NSTR)]
+    zstreams = [zlib.compress(s, 1)[2:-4] for s in shards]
+    if decompress_shards(zstreams, [len(s) for s in shards], device=dev) != shards:
+        raise AssertionError(f"the shard decode on {dev} fails")
+    counts = {name: (pack.launches_batch if name == "pack_batch" else m.launches)
+              for name, m in mods.items()}
+    if not all(counts.values()) or torch.cuda.current_device() != 0:
+        raise AssertionError(f"on {dev}: launches {counts}, current card "
+                             f"{torch.cuda.current_device()}")
+    print(f"every kernel on {dev} with cuda:0 current: launches {counts}", flush=True)
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cards", type=int, default=0,
+                    help="run only the checks across N cards (needs N cards)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1057,8 +1329,18 @@ def main():
     build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
+    if args.cards:
+        t0 = time.time()
+        multi_card_phase(args.cards)
+        print(f"multi_card_phase: {time.time() - t0:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     kernels = []
-    for phase in (encode_phase, decode_phase, scalar_decode_phase, manifest_phase):
+    for phase in (encode_phase, decode_phase, scalar_decode_phase, manifest_phase,
+                  sharded_phase):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         kernels += phase(dev)

@@ -5,7 +5,9 @@ its own into ``_build/lib<name>-<hash>.so`` (``_build/`` sits beside
 this package's ``csrc/`` and is listed in ``.gitignore``).  The hash
 covers the source and the flags, so an edited source builds anew and
 an unchanged one is reused.  Pointers and the stream pass as
-``c_void_p``, so ctypes never cuts them to 32 bits.  Nothing is built
+``c_void_p``, so ctypes never cuts them to 32 bits.  ``launch`` makes the
+tensors' device current around the call, so a wrapper works on any card
+whichever one the process has current.  Nothing is built
 or loaded at import: the first CUDA call of a wrapper builds what it
 needs, and ``build_all`` builds every kernel at once with one nvcc
 process per source.
@@ -19,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -90,6 +94,18 @@ def entry(name: str, symbol: str, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(name: str, symbol: str, argtypes, device, *args,
+           label: str | None = None) -> None:
+    """Call ``symbol`` of kernel ``name`` with ``args`` and ``device``'s
+    current stream, ``device`` current for the call (CUDA refuses a
+    launch into a stream of another device than the current one), and
+    raise if it reports an error."""
+    fn = entry(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, label or name)
 
 
 def check(err: int, name: str) -> None:

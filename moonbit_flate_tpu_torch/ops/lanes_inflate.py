@@ -523,8 +523,6 @@ def _buffers(waves: int, device):
 def _launch(nbits, inw, waves: int, bufs):
     """One checked call of ``lanes_parse_launch`` on the wrapper's buffers."""
     tok, misc, scratch = bufs
-    fn = build.entry("lanes_parse", "lanes_parse_launch", _ARGTYPES)
-    build.check(fn(nbits.data_ptr(), inw.data_ptr(), tok.data_ptr(), misc.data_ptr(),
-                   scratch.data_ptr(), waves * NSTR,
-                   torch.cuda.current_stream(inw.device).cuda_stream),
-                "lanes_parse")
+    build.launch("lanes_parse", "lanes_parse_launch", _ARGTYPES, inw.device,
+                 nbits.data_ptr(), inw.data_ptr(), tok.data_ptr(), misc.data_ptr(),
+                 scratch.data_ptr(), waves * NSTR)

@@ -129,9 +129,8 @@ def resolve_steps(outlen: torch.Tensor, tok: torch.Tensor, waves: int):
     if tok.data_ptr() % 16:            # the kernel loads 16 bytes at a time
         tok = tok.clone()
     out = torch.empty(waves, GROUPS, NSTR, LANE, dtype=torch.int32, device=tok.device)
-    fn = build.entry("lanes_resolve", "lanes_resolve_launch", _ARGTYPES)
-    build.check(fn(outlen.data_ptr(), tok.data_ptr(), out.data_ptr(), waves,
-                   torch.cuda.current_stream(tok.device).cuda_stream), "lanes_resolve")
+    build.launch("lanes_resolve", "lanes_resolve_launch", _ARGTYPES, tok.device,
+                 outlen.data_ptr(), tok.data_ptr(), out.data_ptr(), waves)
     launches += 1
     return out
 

@@ -113,11 +113,10 @@ def _launch_batch(values, widths, n_words, bufs, phases=ALL_PASSES):
     """One checked call of ``pack_batch_launch`` on the wrapper's buffers."""
     words, bits, sums = bufs
     B, NU = values.shape
-    fn = build.entry("pack", "pack_batch_launch", _ARGTYPES_BATCH)
-    build.check(fn(values.data_ptr(), widths.data_ptr(), words.data_ptr(),
-                   bits.data_ptr(), sums.data_ptr(), B, NU, n_words, phases,
-                   torch.cuda.current_stream(values.device).cuda_stream),
-                "pack_batch")
+    build.launch("pack", "pack_batch_launch", _ARGTYPES_BATCH, values.device,
+                 values.data_ptr(), widths.data_ptr(), words.data_ptr(),
+                 bits.data_ptr(), sums.data_ptr(), B, NU, n_words, phases,
+                 label="pack_batch")
 
 
 def pack_units_dense_batch(values: torch.Tensor, widths: torch.Tensor,

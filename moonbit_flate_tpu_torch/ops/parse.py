@@ -252,10 +252,9 @@ def parse_batch(nbits: torch.Tensor, words: torch.Tensor, n_chunks: int,
     words = words.contiguous()
     toks = torch.empty(B, cap, dtype=torch.int32, device=words.device)
     cnt = torch.empty(B, 3, dtype=torch.int32, device=words.device)
-    fn = build.entry("parse", "parse_launch", _ARGTYPES)
-    build.check(fn(nbits.data_ptr(), words.data_ptr(), toks.data_ptr(),
-                   cnt.data_ptr(), B, SW, cap,
-                   torch.cuda.current_stream(words.device).cuda_stream), "parse")
+    build.launch("parse", "parse_launch", _ARGTYPES, words.device,
+                 nbits.data_ptr(), words.data_ptr(), toks.data_ptr(),
+                 cnt.data_ptr(), B, SW, cap)
     launches += 1
     return toks, cnt
 

@@ -242,9 +242,8 @@ def resolve_batch(tokens: torch.Tensor, ntok: torch.Tensor, nt_pad: int,
     ntok = ntok.contiguous()
     B = tokens.shape[0]
     out = torch.empty(B, no_pad // 4, dtype=torch.int32, device=tokens.device)
-    fn = build.entry("resolve", "resolve_launch", _ARGTYPES)
-    build.check(fn(ntok.data_ptr(), tokens.data_ptr(), out.data_ptr(), B, nt_pad,
-                   no_pad, torch.cuda.current_stream(tokens.device).cuda_stream),
-                "resolve")
+    build.launch("resolve", "resolve_launch", _ARGTYPES, tokens.device,
+                 ntok.data_ptr(), tokens.data_ptr(), out.data_ptr(), B, nt_pad,
+                 no_pad)
     launches += 1
     return out

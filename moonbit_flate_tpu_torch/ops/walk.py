@@ -153,12 +153,11 @@ def commit_walk_tiled_ref(data_padded: torch.Tensor, mlen: torch.Tensor,
 def _launch(data_padded, mlen, dist, ctx_t, n_t, scratch, outputs, phases):
     """The C entry point of ``csrc/walk.cu`` on checked CUDA tensors."""
     B, S = mlen.shape
-    fn = build.entry("walk", "walk_launch", _ARGTYPES)
-    build.check(fn(data_padded.data_ptr(), data_padded.shape[1], mlen.data_ptr(),
-                   dist.data_ptr(), ctx_t.data_ptr(), n_t.data_ptr(),
-                   *(t.data_ptr() for t in scratch),
-                   *(t.data_ptr() for t in outputs), B, S, phases,
-                   torch.cuda.current_stream(mlen.device).cuda_stream), "walk")
+    build.launch("walk", "walk_launch", _ARGTYPES, mlen.device,
+                 data_padded.data_ptr(), data_padded.shape[1], mlen.data_ptr(),
+                 dist.data_ptr(), ctx_t.data_ptr(), n_t.data_ptr(),
+                 *(t.data_ptr() for t in scratch),
+                 *(t.data_ptr() for t in outputs), B, S, phases)
 
 
 def _scratch(B: int, S: int, dev):

@@ -1,36 +1,223 @@
-"""Shard-manifest compression on one device.
+"""Data-parallel compression over ``torch.distributed``.
 
-Port of the single-device part of ``moonbit_flate_tpu/parallel/sharded.py``:
-``ShardManifest``, ``compress_with_manifest`` and
-``decompress_with_manifest``.  Segments are byte-aligned and
-history-independent, so a stream is the concatenation of its shards'
-streams, and the manifest (compressed and payload size of every shard)
-lets a failed shard re-run alone and the decode run shard-parallel.
-The JAX package encodes one shard per device of a mesh in each wave;
-here a wave is a batch on one card: up to ``WAVE`` shards go through
-one ``encode_segments_batched`` (one launch of the walk and of the
-batched pack) and one ``compact_streams``, and one copy proportional to
-the compressed size returns to the host.  The stream does not depend
-on the wave size.
+Port of ``moonbit_flate_tpu/parallel/sharded.py``.  DEFLATE blocks with
+BFINAL=0 are concatenable, and the encoder's segments are byte-aligned
+and history-independent, so scaling is pure data parallelism.  The JAX
+package drives every device of a mesh from one process through
+``shard_map``; the port runs one process a rank (PyTorch's idiom).  Every
+rank calls the same entry point with the same bytes, encodes its own
+shard of each wave on its own device, and gets the same stream back:
 
-The multi-process layer (``make_sharded_encoder``, ``ShardedCompressor``,
-``make_mesh``) is not ported yet: it comes with ``torch.distributed``.
+  encode the shard (``encode_segment_ctx``: the walk and pack kernels)
+  -> one all-gather of the D shard sizes -> one all-gather of each
+  shard's first ``Wc`` words -> a local stitch at the exclusive prefix
+  sum of the sizes (``compact_streams``) -> the host appends the
+  close-time final empty stored block.
+
+Collectives: with NCCL they run on the card.  Gloo's collectives run on
+the host, so there only the sizes and the ``Wc`` gathered words cross to
+the host and back; the encode stays on the rank's device.  That is the
+backend's own path, not a fallback.
+
+Context flows in as a per-shard prefix (reader-style preset dictionary):
+``dictionary=`` seeds shard 0 of wave 0, and ``halo=True`` hands every
+other shard the previous 32 KB of the data, so cross-shard matches survive
+sharding and the stitched stream stays one ordinary DEFLATE stream.
+
+``compress_with_manifest`` / ``decompress_with_manifest`` keep a sidecar
+of every shard's compressed and payload size, so a failed shard re-runs
+alone and the decode runs shard-parallel.  Without a mesh the manifest
+encode runs on one card: a wave of up to ``WAVE`` shards goes through one
+``encode_segments_batched`` (one launch of the walk and of the batched
+pack) and one ``compact_streams``.  With a mesh it runs one shard a rank
+a wave.  Both give the same stream and manifest.
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api.cuda import FINAL_EMPTY_BLOCK, stage_segment
+from ..formats import constants as C
 from ..inflate.cuda_inflate import decompress_segments
 from ..ops.lanes_inflate import IN_W, SEGB
 from ..ops.lanes_resolve import decompress_shards
-from ..ops.pipeline import BLOCK, compact_streams, encode_segments_batched
-from ..utils.device import resolve_device
+from ..ops.pipeline import (BLOCK, compact_streams, encode_segment_ctx,
+                            encode_segments_batched, n_words_for)
+from ..utils.device import resolve_device, to_host
 
 WAVE = 16  # shards per encode_segments_batched call (bounds device memory)
 
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """The port's mesh: the default process group, its size D, this
+    process's rank and the device this rank encodes on."""
+
+    group: object
+    size: int
+    rank: int
+    device: torch.device
+    backend: str
+
+
+def make_mesh(device=None, axis_name: str = "data") -> ProcessMesh:
+    """The mesh of the already initialised default process group.  It
+    starts no group itself.  ``device=None`` means ``cuda:<local rank>``
+    with NCCL (``LOCAL_RANK`` where the launcher sets it, else the rank
+    modulo the cards) and the card with any other backend; raises without
+    one.  A card is made this process's current device, as NCCL expects.
+    ``axis_name`` is kept for the JAX package's signature and ignored:
+    the group is always the whole world."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("torch.distributed is not initialised: call "
+                           "init_process_group before make_mesh")
+    group = dist.group.WORLD
+    backend = str(dist.get_backend(group))
+    rank = dist.get_rank(group)
+    dev = resolve_device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("NCCL collectives need a CUDA device")
+    if dev.type == "cuda":
+        if backend == "nccl" and device is None:
+            local = os.environ.get("LOCAL_RANK")
+            dev = torch.device("cuda", int(local) if local is not None
+                               else rank % torch.cuda.device_count())
+        elif dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    return ProcessMesh(group, dist.get_world_size(group), rank, dev, backend)
+
+
+def _all_gather(mesh: ProcessMesh, t: torch.Tensor) -> torch.Tensor:
+    """[D, *t.shape]: every rank's ``t``, on ``t``'s device.  Gloo's
+    collectives run on the host, so there ``t`` crosses to it and the
+    result back: the backend's own path, not a fallback."""
+    on_host = mesh.backend != "nccl"
+    src = to_host(t) if on_host else t
+    out = torch.empty((mesh.size, *src.shape), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather(list(out.unbind(0)), src, group=mesh.group)
+    return out.to(t.device) if on_host else out
+
+
+def make_sharded_encoder(mesh: ProcessMesh, nb: int, word_cap: int | None = None):
+    """The encode + stitch step of one wave; every rank calls it with its
+    own shard.
+
+    Input:  data_row uint8[nb*BLOCK + PAD] on this rank's device, n the
+            valid bytes (context + payload), ctx the context prefix.
+    Output: stream int32[D*Wc + 1] holding the u32 words of the stitched
+            stream, sizes int32[D] per-shard compressed bytes, total
+            int32 stream bytes; the same on every rank.
+
+    Each shard contributes its first ``Wc`` words to the gather.  ``Wc``
+    defaults to the incompressible worst case; a caller that knows its
+    data compresses passes a tighter ``word_cap``.  A shard larger than
+    the cap is cut in the gather while sizes and total stay exact, so the
+    caller checks the sizes and runs the wave again at the full cap.
+    """
+    W_full = n_words_for(nb)
+    Wc = W_full if word_cap is None else min(word_cap, W_full)
+
+    def step(data_row: torch.Tensor, n: int, ctx: int):
+        words, bits = encode_segment_ctx(data_row, n, ctx, nb)
+        sizes = _all_gather(mesh, (bits // 8).reshape(1)).reshape(-1)
+        gathered = _all_gather(mesh, words[:Wc])              # [D, Wc]
+        # a shard past the cap keeps only its gathered bytes (the stream
+        # is then short and the caller retries at the full cap)
+        stream, _ = compact_streams(gathered, torch.clamp(sizes, max=4 * Wc) * 8)
+        return stream, sizes, sizes.sum().int()
+
+    return step
+
+
+def _stream_bytes(stream: torch.Tensor, total) -> bytes:
+    return to_host(stream.view(torch.uint8)[: int(total)]).numpy().tobytes()
+
+
+class ShardedCompressor:
+    """Data-parallel one-shot compressor over a process mesh.
+
+    Every rank calls ``compress`` with the same bytes and returns the
+    same stream.  ``dictionary=`` is a reader-style preset dictionary
+    (the decoder must be constructed with the same dictionary);
+    ``halo=True`` feeds each shard the previous 32 KB of the data as
+    context, recovering cross-shard matches (the output is still one
+    plain DEFLATE stream).
+    """
+
+    def __init__(self, mesh: ProcessMesh | None = None,
+                 blocks_per_segment: int = 16, halo: bool = False,
+                 word_cap: int | None = None):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.nb = blocks_per_segment
+        self.seg = self.nb * BLOCK
+        self.halo = halo
+        self.n_dev = self.mesh.size
+        self.word_cap = word_cap
+        self._step = make_sharded_encoder(self.mesh, self.nb, word_cap)
+        self._step_full = (self._step if word_cap is None
+                           else make_sharded_encoder(self.mesh, self.nb))
+
+    def _upload(self, context: bytes, part: bytes):
+        buf, n, ctx = stage_segment(context, part, self.nb)
+        return torch.from_numpy(buf).to(self.mesh.device), n, ctx
+
+    def compress(self, data: bytes, dictionary: bytes | None = None) -> bytes:
+        """A wave at a time: this rank stages and uploads only its own
+        shard of the wave, and only the stitched bytes return."""
+        waves = self._waves(bytes(data), dictionary)
+        return b"".join(part for part, _, _ in waves) + FINAL_EMPTY_BLOCK
+
+    def _waves(self, data: bytes, dictionary: bytes | None = None):
+        """Yield each wave's stitched bytes, its shard sizes int32[D] and
+        the D shards' payload lengths (0 past the data).  This is the one
+        place that maps a rank to its shard, which every rank must agree on."""
+        D, r = self.n_dev, self.mesh.rank
+        context = bytes(dictionary or b"")[-C.WINDOW_SIZE:]
+        payload_cap = self.seg - (
+            C.WINDOW_SIZE if (self.halo or context) else 0)
+        if payload_cap <= 0:
+            raise ValueError("segment too small for context")
+        wave = D * payload_cap
+        for w in range(max(1, -(-len(data) // wave))):
+            start = w * wave + r * payload_cap
+            if w == 0 and r == 0:
+                ctxd = context
+            elif self.halo:
+                ctxd = data[max(0, start - C.WINDOW_SIZE): start]
+            else:
+                ctxd = b""
+            args = self._upload(ctxd, data[start: start + payload_cap])
+            stream, sizes, total = self._step(*args)
+            if self.word_cap is not None and bool(
+                    (sizes > 4 * self.word_cap - 4).any()):
+                # a shard overflowed the tight gather cap (incompressible
+                # data): redo this wave at the worst-case cap
+                stream, sizes, total = self._step_full(*args)
+            ns = [max(0, min(payload_cap, len(data) - (w * wave + d * payload_cap)))
+                  for d in range(D)]
+            yield _stream_bytes(stream, total), sizes, ns
+
+
+def compress(data: bytes, mesh: ProcessMesh | None = None,
+             blocks_per_segment: int = 16, halo: bool = False,
+             dictionary: bytes | None = None) -> bytes:
+    return ShardedCompressor(mesh, blocks_per_segment, halo).compress(
+        data, dictionary)
+
+
+# ---------------------------------------------------------------------------
+# Per-shard progress manifest (SURVEY §5.4): the shard-granular state
+# vector that makes recovery and parallel decode simple — blocks are
+# independent, so a lost shard is re-run and a stored manifest turns
+# decode into pure data parallelism as well.
 
 class ShardManifest:
     """Sidecar index of a sharded stream: per-shard compressed sizes and
@@ -64,18 +251,34 @@ class ShardManifest:
                    d["blocks_per_segment"])
 
 
-def compress_with_manifest(data: bytes, blocks_per_segment: int = 16,
-                           device=None):
+def compress_with_manifest(data: bytes, mesh: ProcessMesh | None = None,
+                           blocks_per_segment: int = 16, device=None):
     """Sharded compress returning (stream, ShardManifest).
 
+    Without a mesh the shards go in waves of ``WAVE`` through the batched
+    encode on ``device`` (``None`` means the card); with a mesh, one shard
+    a rank a wave on the mesh's devices.  Same stream and manifest.
     halo/dictionary are deliberately unsupported here: the manifest's
     point is shard-independent decode, which cross-shard history breaks.
     """
-    dev = resolve_device(device)
     nb = blocks_per_segment
-    seg = nb * BLOCK
     data = bytes(data)
     comp_sizes, payload_sizes, out = [], [], []
+    if mesh is not None:
+        # the JAX form: one shard a rank a wave through the sharded step,
+        # the manifest from the gathered sizes
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        for part, sizes, ns in ShardedCompressor(mesh, nb)._waves(data):
+            out.append(part)
+            for size, n in zip(sizes.tolist(), ns):
+                if n > 0:
+                    comp_sizes.append(size)
+                    payload_sizes.append(n)
+        out.append(FINAL_EMPTY_BLOCK)
+        return b"".join(out), ShardManifest(comp_sizes, payload_sizes, nb)
+    dev = resolve_device(device)
+    seg = nb * BLOCK
     for wstart in range(0, len(data), WAVE * seg):
         shards = [data[s: s + seg]
                   for s in range(wstart, min(len(data), wstart + WAVE * seg), seg)]
@@ -88,7 +291,7 @@ def compress_with_manifest(data: bytes, blocks_per_segment: int = 16,
         if any(b % 8 for b in bits):
             raise RuntimeError("segment stream is not byte-aligned")
         sizes = [b // 8 for b in bits]
-        out.append(stream.view(torch.uint8)[: sum(sizes)].cpu().numpy().tobytes())
+        out.append(_stream_bytes(stream, sum(sizes)))
         comp_sizes += sizes
         payload_sizes += ns
     out.append(FINAL_EMPTY_BLOCK)

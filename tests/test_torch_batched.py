@@ -241,7 +241,8 @@ def test_compress_with_manifest_equals_jax(mesh, monkeypatch, n_bytes, wave):
     monkeypatch.setattr(TS, "WAVE", wave)
     payload = _manifest_payload(n_bytes)
     j_stream, j_man = JS.compress_with_manifest(payload, mesh, 1)
-    t_stream, t_man = mft.compress_with_manifest(payload, 1, device="cpu")
+    t_stream, t_man = mft.compress_with_manifest(payload, blocks_per_segment=1,
+                                                 device="cpu")
     assert t_stream == j_stream
     assert t_man.to_dict() == j_man.to_dict()
     assert sum(t_man.comp_sizes) + 5 == len(t_stream)
@@ -251,7 +252,8 @@ def test_compress_with_manifest_equals_jax(mesh, monkeypatch, n_bytes, wave):
 def test_manifest_dict_round_trips_across_the_packages(mesh):
     payload = _manifest_payload(BLOCK + 700)
     _, j_man = JS.compress_with_manifest(payload, mesh, 1)
-    stream, t_man = mft.compress_with_manifest(payload, 1, device="cpu")
+    stream, t_man = mft.compress_with_manifest(payload, blocks_per_segment=1,
+                                               device="cpu")
     d = t_man.to_dict()
     assert d == {"version": 1, "blocks_per_segment": 1,
                  "comp_sizes": t_man.comp_sizes, "payload_sizes": [BLOCK, 700]}
@@ -267,7 +269,8 @@ def test_manifest_dict_round_trips_across_the_packages(mesh):
 def test_manifest_decode_takes_the_lane_route_for_small_shards(mesh, monkeypatch):
     payload = (b"lane manifest shard | " * 80)[:1500]
     stream, j_man = JS.compress_with_manifest(payload, mesh, 1)
-    t_stream, t_man = mft.compress_with_manifest(payload, 1, device="cpu")
+    t_stream, t_man = mft.compress_with_manifest(payload, blocks_per_segment=1,
+                                                 device="cpu")
     assert (t_stream, t_man.to_dict()) == (stream, j_man.to_dict())
     called = []
     orig = TS.decompress_shards

@@ -198,7 +198,7 @@ def test_decompress_preset_dictionary_equals_jax():
     assert mft.decompress(s, dictionary=d, device="cpu") == want
     assert want == b"shared dictionary content! and more"
     # a dictionary routes around the device parser, as in the JAX package
-    assert mft.decompress(s, dictionary=d, parse_on_device=True, device="cpu") == want
+    assert TI.decompress(s, dictionary=d, parse_on_device=True, device="cpu") == want
 
 
 @pytest.mark.parametrize("parse_on_device", [False, True])
@@ -206,18 +206,18 @@ def test_decompress_corrupt_raises_like_jax(parse_on_device):
     with pytest.raises(JE.FlateError):
         JI.decompress(b"\x01\x05\x00\x00\x00hello")
     with pytest.raises(TE.CorruptInputError):
-        mft.decompress(b"\x01\x05\x00\x00\x00hello", parse_on_device=parse_on_device,
-                       device="cpu")
+        TI.decompress(b"\x01\x05\x00\x00\x00hello", parse_on_device=parse_on_device,
+                      device="cpu")
     good = _raw(b"truncate me " * 100)
     with pytest.raises(TE.UnexpectedEOFError):
-        mft.decompress(good[: len(good) // 2], parse_on_device=parse_on_device,
-                       device="cpu")
+        TI.decompress(good[: len(good) // 2], parse_on_device=parse_on_device,
+                      device="cpu")
 
 
 def test_decompress_parse_on_device():
     payload = b"on-device stage A parse " * 40
     s = _raw(payload)
-    assert mft.decompress(s, parse_on_device=True, device="cpu") == payload
+    assert TI.decompress(s, parse_on_device=True, device="cpu") == payload
     assert np.array_equal(TI.scan_tokens_device(s, device="cpu"), JI.scan_tokens(s))
 
 

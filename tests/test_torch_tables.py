@@ -107,6 +107,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "moonbit_flate_tpu_torch.utils.stream_cases\n"
         "import moonbit_flate_tpu_torch.parallel.sharded, "
         "moonbit_flate_tpu_torch.ops.walk, moonbit_flate_tpu_torch.kernels.emulate\n"
+        "import moonbit_flate_tpu_torch.config, moonbit_flate_tpu_torch.utils.bits, "
+        "moonbit_flate_tpu_torch.utils.utf8, moonbit_flate_tpu_torch.bitio.writer, "
+        "moonbit_flate_tpu_torch.huffman.encode, "
+        "moonbit_flate_tpu_torch.huffman.decode_table, "
+        "moonbit_flate_tpu_torch.lz77.reference_fast, "
+        "moonbit_flate_tpu_torch.blocks.emitters, moonbit_flate_tpu_torch.api.stream, "
+        "moonbit_flate_tpu_torch.inflate.dict_decoder, "
+        "moonbit_flate_tpu_torch.inflate.decoder\n"
+        "assert 'torch.distributed' in sys.modules\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')]\n"
         "assert not bad, bad\n"
@@ -118,11 +128,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
 
 
-def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
-    from moonbit_flate_tpu_torch import (ShardManifest, compress,
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch, tmp_path):
+    import torch.distributed as dist
+
+    from moonbit_flate_tpu_torch import (ShardManifest, ShardedCompressor, compress,
                                          compress_with_manifest, decompress,
                                          decompress_segments, decompress_shards,
-                                         decompress_with_manifest)
+                                         decompress_with_manifest, make_mesh)
     from moonbit_flate_tpu_torch.api.cuda import CUDACompressor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -142,4 +154,79 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             decompress_with_manifest(b"\x03\x00",
                                      ShardManifest([2], [payload_size], 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compress(b"abc", backend="cuda")
+    for backend in ("native", "python"):            # the host backends need no card
+        assert decompress(compress(b"abc", backend=backend), backend=backend) == b"abc"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decompress(b"\x03\x00")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decompress(b"\x03\x00", backend="cuda")
+    # a process group without a device: make_mesh asks for the card
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedCompressor()
+        assert make_mesh(device="cpu").device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
     assert CUDACompressor(device="cpu").device.type == "cpu"
+
+
+_KERNEL_WRAPPERS = ["walk", "pack", "parse", "resolve", "lanes_inflate",
+                    "lanes_resolve"]
+
+
+@pytest.mark.parametrize("module", _KERNEL_WRAPPERS)
+def test_every_kernel_wrapper_launches_through_build_launch(module):
+    # build.launch makes the tensors' device current around the C call;
+    # a wrapper that took the stream itself would launch on whichever
+    # card the process has current and fail on any other
+    with open(os.path.join(_ROOT, "moonbit_flate_tpu_torch", "ops", f"{module}.py")) as f:
+        src = f.read()
+    assert "build.launch(" in src
+    assert "current_stream(" not in src and "build.entry(" not in src
+
+
+@pytest.mark.parametrize("err", [0, 7])
+def test_build_launch_makes_the_device_current_around_the_call(monkeypatch, err):
+    from moonbit_flate_tpu_torch.kernels import build
+
+    events = []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            events.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.device))
+
+    class Stream:
+        cuda_stream = 0xBEEF
+
+    def fake_entry(name, symbol, argtypes):
+        def fn(*args):
+            events.append(("call", name, symbol, args))
+            return err
+        return fn
+
+    dev = torch.device("cuda", 1)
+    monkeypatch.setattr(build, "entry", fake_entry)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: events.append(("stream", d)) or Stream())
+    if err:
+        with pytest.raises(RuntimeError, match="pack_batch kernel launch failed"):
+            build.launch("pack", "pack_batch_launch", [], dev, 11, 22,
+                         label="pack_batch")
+    else:
+        build.launch("pack", "pack_batch_launch", [], dev, 11, 22, label="pack_batch")
+    assert events == [("enter", dev), ("stream", dev),
+                      ("call", "pack", "pack_batch_launch", (11, 22, 0xBEEF)),
+                      ("exit", dev)]
