@@ -15,7 +15,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    ``CUDACompressor(blocks_per_segment=16)`` over a 16 MiB mixed corpus,
    checks it round-trips through zlib and that both kernels were
    launched there; then a preset-dictionary case, a halo case, and the
-   card against the plain route on a small input; times it all;
+   card against the plain route on a small input; times it all, and
+   ``encode_segment_ctx`` on one segment cut after each of its stages
+   (the "encode stages" line);
 4. decode: runs kernel A (``lanes_parse``) and kernel BC
    (``lanes_resolve``, through both entries: kernel A's step-major
    tokens and the lane-major rows) at the main path's 32 waves, the
@@ -69,7 +71,12 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    the card (not a multi-GPU run) and holds both ranks' streams against
    the world of 1; and round-trips the one-shot ``compress`` /
    ``decompress`` of the 'cuda', 'native' and 'python' backends;
-8. prints a JSON line of all kernels and, last, the device line.
+8. bench: the port's bench (``moonbit_flate_tpu_torch/bench.py``) in this
+   process; prints its JSON line and the launch counts of its run, and
+   fails unless the line holds no error, a positive value and the
+   chip-independent fields of the JAX bench's line (``BENCH_r05.json``),
+   and kernels a-f launched there, the batched pack never;
+9. prints a JSON line of all kernels and, last, the device line.
 
 ``python3 chip_smoke.py --cards N`` needs N cards and runs only what
 exists across cards: an NCCL world of N ranks, one card each (rank r on
@@ -93,6 +100,8 @@ import zlib
 import numpy as np
 import torch
 
+from moonbit_flate_tpu_torch.utils.corpus import make_corpus
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor rate (data sheet, fp32)
 DEC_WAVES = 32              # decode main path: 32 x 1024 shards of 4096 bytes
@@ -100,34 +109,9 @@ SEG_BYTES = 1048560         # the encoder's 16-block segment
 N_SEGS = 64                 # scalar decode main path: 64 segment streams
 
 
-@functools.lru_cache(maxsize=None)
-def make_corpus(total=16 * (1 << 20), seed=0):
-    """Synthetic Silesia stand-in: mixed text / binary records /
-    repetitive / random sections (same generator as bench.py)."""
-    rng = np.random.default_rng(seed)
-    parts = []
-    words = [b"the", b"quick", b"compression", b"deflate", b"window",
-             b"huffman", b"block", b"stream", b"symbol", b"match",
-             b"of", b"and", b"entropy", b"parallel", b"kernel"]
-    while sum(map(len, parts)) < total:
-        kind = rng.integers(0, 4)
-        if kind == 0:
-            n_words = int(rng.integers(2000, 8000))
-            idx = rng.integers(0, len(words), n_words)
-            parts.append(b" ".join(words[i] for i in idx))
-        elif kind == 1:
-            rec = rng.integers(0, 256, 64, np.uint8).tobytes()
-            reps = int(rng.integers(200, 1200))
-            noise = rng.integers(0, 256, 64, np.uint8)
-            parts.append(b"".join(
-                rec[:48] + noise.tobytes()[:16] for _ in range(reps)))
-        elif kind == 2:
-            unit = rng.integers(0, 256, int(rng.integers(3, 200)), np.uint8).tobytes()
-            parts.append(unit * int(rng.integers(500, 3000)))
-        else:
-            parts.append(rng.integers(0, 256, int(rng.integers(30000, 150000)),
-                                      np.uint8).tobytes())
-    return b"".join(parts)[:total]
+# the bench corpus (moonbit_flate_tpu_torch/utils/corpus.py), made once
+# for each (total, seed): the phases share the 16 MiB and 64 MiB corpora
+make_corpus = functools.lru_cache(maxsize=None)(make_corpus)
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -226,6 +210,45 @@ def kernel_entry(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+# tools/ablate_stages.py's names of the encoder's stage cuts
+STAGE_LABELS = {1: "match find (sorts + lag tables)", 2: "greedy walk (walk.cu)",
+                3: "token attrs + blkify", 4: "histograms", 5: "huffman build_codes",
+                6: "codegen + dyn sizes", 7: "policy + unit assembly",
+                None: "FULL (incl. pack)"}
+
+
+def encode_stages(dev, staged, nb, reps=5):
+    """``encode_segment_ctx`` on one staged segment, cut after each stage
+    and uncut: each call timed on the host up to a sync, the median of
+    ``reps`` after a warm call, and the deltas between successive cuts.
+    A cut's checksum must repeat on every call."""
+    from moonbit_flate_tpu_torch.ops import pipeline
+
+    buf, n, ctx = staged
+    data = torch.from_numpy(buf).to(dev)
+    med = {}
+    for cut in STAGE_LABELS:
+        times, sums = [], set()
+        for r in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipeline.encode_segment_ctx(data, n, ctx, nb, stage_cut=cut)
+            torch.cuda.synchronize()
+            if r:
+                times.append((time.perf_counter() - t0) * 1e3)
+            sums.add(int(out[0]) if cut else out[0].cpu().numpy().tobytes())
+        if len(sums) != 1:
+            raise AssertionError(f"stage cut {cut} gives {len(sums)} different results")
+        med[cut] = float(np.median(times))
+    parts, prev = [], 0.0
+    for cut, label in STAGE_LABELS.items():
+        parts.append(f"cut {cut or 'none'} {label} {med[cut]:.2f} ({med[cut] - prev:+.2f})")
+        prev = med[cut]
+    print(f"encode stages (ms, median of {reps}; nb = {nb}, one segment of {n - ctx} "
+          f"bytes; the delta to the cut before in brackets): " + "; ".join(parts),
+          flush=True)
 
 
 def encode_phase(dev):
@@ -358,6 +381,7 @@ def encode_phase(dev):
           flush=True)
 
     profile_main_path("encode", lambda: comp.compress(corpus))
+    encode_stages(dev, staged[0], nb)
 
     B = data.shape[0]
     walk_ms = cuda_ms(lambda: walk.commit_walk(*walk_args), 5)
@@ -1253,6 +1277,60 @@ def sharded_phase(dev):
     return []
 
 
+# the chip-independent fields of the JAX bench's line on the full corpus,
+# held against BENCH_r05.json; the port's bytes equal the JAX package's
+BENCH_EXACT = ("compression_ratio", "corpus_mb", "tokens", "blocks", "decode_shards")
+
+
+def bench_phase(dev):
+    """The port's bench (``python3 -m moonbit_flate_tpu_torch.bench``) in
+    this process, with every kernel's launch count from 0: its JSON line
+    must hold no error, a positive value and BENCH_r05.json's values of
+    BENCH_EXACT, and kernels a-f must have launched, g (the batched
+    pack) never."""
+    import contextlib
+    import io
+    import os
+
+    from moonbit_flate_tpu_torch import bench
+    from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
+    from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
+    from moonbit_flate_tpu_torch.ops import pack, walk
+    from moonbit_flate_tpu_torch.ops import parse as P
+    from moonbit_flate_tpu_torch.ops import resolve as R
+
+    mods = {"walk": walk, "pack": pack, "lanes_parse": LI, "lanes_resolve": LR,
+            "parse": P, "resolve": R}
+    os.environ.pop("MF_BENCH_SMOKE", None)
+    for m in mods.values():
+        m.launches = 0
+    pack.launches_batch = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main()
+    launches = dict({k: m.launches for k, m in mods.items()},
+                    pack_batch=pack.launches_batch)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    line = json.loads(text.strip().splitlines()[-1])
+    extra = line.get("extra", {})
+    print(f"bench launches {launches}", flush=True)
+    if rc != 0 or not line["value"] > 0 \
+            or any("error" in k for k in list(line) + list(extra)):
+        raise AssertionError(f"the bench failed (exit {rc})")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "BENCH_r05.json")) as f:
+        ref = json.load(f)["parsed"]["extra"]
+    for k in BENCH_EXACT:
+        if extra.get(k) != ref[k]:
+            raise AssertionError(f"bench {k} is {extra.get(k)}, BENCH_r05.json's {ref[k]}")
+    if launches["pack_batch"] or not all(v for k, v in launches.items()
+                                         if k != "pack_batch"):
+        raise AssertionError(f"bench launches {launches}: kernels a-f must launch, "
+                             f"g never")
+    return []
+
+
 def multi_card_phase(cards):
     """An NCCL world of ``cards`` ranks, a card each, against
     ``CUDACompressor`` on card 0; then every kernel on the last card
@@ -1340,7 +1418,7 @@ def main():
 
     kernels = []
     for phase in (encode_phase, decode_phase, scalar_decode_phase, manifest_phase,
-                  sharded_phase):
+                  sharded_phase, bench_phase):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         kernels += phase(dev)

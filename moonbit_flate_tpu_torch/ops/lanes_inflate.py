@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..utils.bits import wrap32
 from ..utils.device import resolve_device
 from .tables import length_base_extra, offset_base_extra
 
@@ -123,11 +124,6 @@ def stage_streams_lanes(streams, waves: int, device=None):
 # the plain twin
 # ---------------------------------------------------------------------------
 
-def _wrap32(x):
-    """int64 holding any integer -> the int32 value of its low 32 bits."""
-    return ((x + (1 << 31)) & _M32) - (1 << 31)
-
-
 def _peek(words, bp):
     """32 bits of each stream starting at bit bp (LSB first), zero past
     the stream's W words.  words: int64[B, W + 2] (u32 values, two zero
@@ -210,10 +206,10 @@ def _canonical(counts):
     fc, base = [], []
     for l in range(1, maxb + 1):
         c = counts[:, l - 1]
-        fc.append(_wrap32((code << 9) | c))
+        fc.append(wrap32((code << 9) | c))
         base.append(b)
         b = b + c
-        code = _wrap32((code + c) << 1)
+        code = wrap32((code + c) << 1)
         kraft = kraft + (c << (maxb - l))
         mx = torch.where(c > 0, l, mx)
     full = 1 << maxb

@@ -16,9 +16,11 @@ assembly and the one-segment pack kernel once per segment around one
 walk launch; ``encode_segments_batched`` runs every stage once for all
 B segments and packs them with one launch of the batched pack kernel, and
 ``compact_streams`` joins the B byte-aligned streams on the device.
-The per-block policy is a loop over the nb blocks on the host, on
-vectors of B (one copy of B * nb sizes per call).  Bit work on u32
-values is done in int64 masked to 32 bits.
+``encode_segment_ctx(..., stage_cut=k)`` stops after stage k and
+returns a checksum of that stage's live outputs (``_cksum``), the JAX
+version's profiling hook.  The per-block policy is a loop over the nb
+blocks on the host, on vectors of B (one copy of B * nb sizes per
+call).  Bit work on u32 values is done in int64 masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..formats import constants as C
+from ..utils.bits import wrap32
 from . import tables as T
 from .dense import hist_rows, take_rows
 from .header import SEQ_LEN, codegen_emissions
@@ -34,11 +37,31 @@ from .huffman_torch import build_codes
 from .matcher import _u32_to_i32, find_matches_batch
 from .pack import pack_units_dense, pack_units_dense_batch
 from .walk import commit_walk as _commit_walk_batch
+from .walk import commit_xla as _commit_xla
 
 BLOCK = C.MAX_STORE_BLOCK_SIZE          # 65535
 PAD = 320                               # matcher gather slack
 
 _ORDER_NP = np.asarray(C.CODEGEN_ORDER, np.int64)
+
+
+def _cksum(*tensors: torch.Tensor) -> torch.Tensor:
+    """Order-dependent checksum of every input: the sum of all their
+    elements, each cast to int32 first (bool 0/1, uint8 its value, an
+    int64 holding a u32 its bit pattern), wrapped to int32 as JAX's
+    ``jnp.sum`` on int32 wraps.  An int32 scalar tensor on the inputs'
+    device; nothing is copied to the host."""
+    acc = 0
+    for t in tensors:
+        acc = acc + t.to(torch.int32).sum(dtype=torch.int64)
+    return wrap32(acc).to(torch.int32)
+
+
+def _cut(*tensors: torch.Tensor):
+    """What a stage cut returns: (``_cksum`` of the stage's outputs,
+    int32 0), as the JAX version returns."""
+    ck = _cksum(*tensors)
+    return ck, torch.zeros_like(ck)
 
 
 def n_words_for(nb: int) -> int:
@@ -71,7 +94,8 @@ def _find_clip(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
     return mlen[0], dist[0]
 
 
-def encode_segment_ctx(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
+def encode_segment_ctx(data_padded: torch.Tensor, n: int, ctx: int, nb: int,
+                       stage_cut: int | None = None):
     """Compress one segment of up to nb*65535 payload bytes.
 
     data_padded: uint8[nb*65535 + 320], zero past n.  The first ``ctx``
@@ -79,9 +103,40 @@ def encode_segment_ctx(data_padded: torch.Tensor, n: int, ctx: int, nb: int):
     reference them, but no tokens are emitted for them.  n counts
     context plus payload.  Returns (words int32[W] holding the stream's
     u32 words, total_bits int32 scalar tensor, a multiple of 8).
+
+    stage_cut (profiling only): k in 1-7 stops after stage k and returns
+    (``_cksum`` of that stage's live outputs, int32 0) instead; nothing
+    after the cut is computed or launched (cut 1 launches no walk, no
+    cut a pack).  Stages: 1 matches clipped at the blocks, 2 the commit,
+    3 token attributes in block layout, 4 histograms, 5 Huffman codes,
+    6 codegen headers and dynamic sizes, 7 policy and unit assembly.
     """
+    if stage_cut is not None:
+        return _encode_cut(data_padded[None], n, ctx, nb, stage_cut)
     words, bits = encode_segments(data_padded[None], [n], [ctx], nb)
     return words[0], bits[0]
+
+
+def _encode_cut(data_padded: torch.Tensor, n: int, ctx: int, nb: int,
+                stage_cut: int):
+    """``encode_segment_ctx`` cut after stage ``stage_cut``, on its one
+    segment held with a leading axis of 1."""
+    if stage_cut not in range(1, 8):
+        raise ValueError(f"stage_cut must be 1-7, not {stage_cut}")
+    n, ctx = _segment_args(data_padded, [n], [ctx], nb)
+    mlen, dist = (t[None] for t in _find_clip(data_padded[0], n[0], ctx[0], nb))
+    if stage_cut == 1:
+        return _cut(mlen, dist)
+    if stage_cut == 2 and not data_padded.is_cuda:
+        # the JAX package's CPU route sums _commit_xla's outputs, whose
+        # lengths and distances are not masked to the committed matches
+        return _cut(*_commit_xla(data_padded, mlen, dist, n, ctx, nb))
+    committed, is_match, mlen, dist = _commit_walk_batch(
+        data_padded, mlen, dist, n, ctx, nb)
+    if stage_cut == 2:
+        return _cut(committed, is_match, mlen, dist)
+    return _tokens_to_units(data_padded, n, ctx, committed, is_match, mlen,
+                            dist, nb, stage_cut)
 
 
 def encode_segment(data_padded: torch.Tensor, n: int, nb: int):
@@ -169,11 +224,14 @@ def compact_streams(words: torch.Tensor, bits: torch.Tensor):
 
 def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
                      committed: torch.Tensor, is_match: torch.Tensor,
-                     mlen: torch.Tensor, dist: torch.Tensor, nb: int):
-    """Stages 2-7 of B segments: committed tokens -> (value, width)
+                     mlen: torch.Tensor, dist: torch.Tensor, nb: int,
+                     stage_cut: int | None = None):
+    """Stages 3-7 of B segments: committed tokens -> (value, width)
     unit arrays, int32[B, nb*(339 + 65535 + 1) + 4] each.  n, ctx: B
     ints; the tensors carry a leading axis of B.  All per-block work
-    runs on the B * nb block rows at once."""
+    runs on the B * nb block rows at once.  stage_cut k in 3-7 returns
+    (``_cksum`` of stage k's outputs, int32 0) after stage k, as
+    ``encode_segment_ctx`` does."""
     S = nb * BLOCK
     B = data_padded.shape[0]
     R = B * nb
@@ -214,6 +272,9 @@ def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
     n_b_host = np.clip(payload[:, None] - np.arange(nb) * BLOCK, 0, BLOCK)
     n_b = torch.as_tensor(n_b_host.reshape(R), dtype=torch.int32, device=dev)
     live_b = n_b > 0
+    if stage_cut == 3:
+        return _cut(committed_b, is_match_b, sym_b, lc_b, dc_b, xlen_b, xoff_b,
+                    data_b, n_b)
 
     # ---- histograms ----------------------------------------------------------
     lit_freq = hist_rows(torch.where(committed_b, sym_b, 286), 286)
@@ -230,6 +291,8 @@ def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
     need_fake = live_b & (no_b == 0)
     off_freq[:, 0] += need_fake.int()
     no_b = torch.maximum(no_b, live_b.int())
+    if stage_cut == 4:
+        return _cut(lit_freq, off_freq, nl_b, no_b)
 
     # ---- Huffman tables: both alphabets in one batched build ---------------
     both_freq = torch.cat(
@@ -237,6 +300,8 @@ def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
     both_codes, both_lens = build_codes(both_freq, C.LIT_LEN_MAX_BITS)
     lit_codes, lit_lens = both_codes[:R], both_lens[:R]
     off_codes, off_lens = both_codes[R:, :30], both_lens[R:, :30]
+    if stage_cut == 5:
+        return _cut(lit_codes, lit_lens, off_codes, off_lens)
 
     # ---- codegen RLE + header sizes -----------------------------------------
     jpos = torch.arange(SEQ_LEN, dtype=torch.int32, device=dev)
@@ -258,6 +323,8 @@ def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
               + cg_freq[:, 17] * 3 + cg_freq[:, 18] * 7)
     dyn_bits = (17 + 3 * ncg_b + cg_hdr + (lit_freq * lit_lens).sum(1)
                 + (off_freq * off_lens).sum(1) + extra_l + extra_o)
+    if stage_cut == 6:
+        return _cut(cg_sym, cg_pv, cg_pw, cg_codes, cg_lens, ncg_b, dyn_bits)
 
     # ---- per-block policy (dynamic vs stored), carrying bit alignment ------
     # the carry runs over the nb blocks of a segment; segments are
@@ -366,5 +433,8 @@ def _tokens_to_units(data_padded: torch.Tensor, n, ctx,
         [torch.full_like(t_pad, 3), t_pad, torch.full_like(t_pad, 16),
          torch.full_like(t_pad, 16)], dim=1)
     trailer_wids = torch.where((body_bits % 8 != 0)[:, None], trailer_wids, 0).int()
-    return (torch.cat([flat_vals, trailer_vals], dim=1),
-            torch.cat([flat_wids, trailer_wids], dim=1))
+    all_vals = torch.cat([flat_vals, trailer_vals], dim=1)
+    all_wids = torch.cat([flat_wids, trailer_wids], dim=1)
+    if stage_cut == 7:
+        return _cut(all_vals, all_wids)
+    return all_vals, all_wids

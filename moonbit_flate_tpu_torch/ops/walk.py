@@ -20,9 +20,11 @@ One call of ``commit_walk`` on CUDA tensors is four CUDA kernels
 as one launch.  It reads the matcher's ``mlen`` and ``dist`` as they
 are; no packed copy, bitmask, zeroing pass or scan is made around it.
 
-``commit_walk_ref`` is the plain PyTorch twin (the port of
-``pipeline._commit_xla``): a vectorized extension of every candidate,
-then a pointer-doubling greedy commit over the whole segment.  The
+``commit_walk_ref`` is the plain PyTorch twin: ``commit_xla`` (the
+port of ``pipeline._commit_xla``: a vectorized extension of every
+candidate, then a pointer-doubling greedy commit over the whole
+segment) with its lengths and distances masked to the committed
+matches, as the kernels give them.  The
 wrapper takes the twin for CPU tensors only; for CUDA tensors it
 launches the kernels.  ``commit_walk_tiled_ref`` is a plain model of
 the kernels' decomposition (steps, tile exit tables, stitch, marks) for
@@ -63,6 +65,21 @@ def _extended_lengths(data_padded, mlen, dist, n, ctx, nb):
     return torch.where(m >= C.MIN_MATCH_LENGTH, m, 0)
 
 
+def commit_xla(data_padded: torch.Tensor, mlen: torch.Tensor,
+               dist: torch.Tensor, n, ctx, nb: int):
+    """The JAX package's CPU route of the commit (its ``_commit_xla``)
+    for B segments: bool[B, S] committed token starts, bool[B, S]
+    committed match starts, and int32[B, S] extended lengths and
+    distances of every candidate, not masked to the committed matches.
+    Arguments as ``commit_walk_ref``."""
+    out = []
+    for b in range(data_padded.shape[0]):
+        m = _extended_lengths(data_padded[b], mlen[b], dist[b], n[b], ctx[b], nb)
+        committed = greedy_commit_xla(m, n[b], ctx[b])
+        out.append((committed, committed & (m > 0), m, dist[b]))
+    return tuple(torch.stack(t) for t in zip(*out))
+
+
 def commit_walk_ref(data_padded: torch.Tensor, mlen: torch.Tensor,
                     dist: torch.Tensor, n, ctx, nb: int):
     """Greedy commit of B segments, the plain way.
@@ -72,14 +89,8 @@ def commit_walk_ref(data_padded: torch.Tensor, mlen: torch.Tensor,
     token starts, bool[B, S] committed match starts, and int32[B, S]
     final lengths and distances at match starts (0 elsewhere).
     """
-    out = []
-    for b in range(data_padded.shape[0]):
-        m = _extended_lengths(data_padded[b], mlen[b], dist[b], n[b], ctx[b], nb)
-        committed = greedy_commit_xla(m, n[b], ctx[b])
-        is_match = committed & (m > 0)
-        out.append((committed, is_match, torch.where(is_match, m, 0),
-                    torch.where(is_match, dist[b], 0)))
-    return tuple(torch.stack(t) for t in zip(*out))
+    committed, is_match, m, d = commit_xla(data_padded, mlen, dist, n, ctx, nb)
+    return committed, is_match, torch.where(is_match, m, 0), torch.where(is_match, d, 0)
 
 
 def commit_walk_tiled_ref(data_padded: torch.Tensor, mlen: torch.Tensor,

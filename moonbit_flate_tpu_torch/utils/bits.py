@@ -45,3 +45,9 @@ def reverse_bits_array(values: np.ndarray, widths: np.ndarray) -> np.ndarray:
     shifted = (values << (16 - widths)).astype(np.uint16)
     rev = REV8_TABLE[shifted >> 8] | (REV8_TABLE[shifted & 0xFF] << 8)
     return rev.astype(np.uint32)
+
+
+def wrap32(x):
+    """An integer (or an int64 tensor of them) -> the int32 value of its
+    low 32 bits."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)

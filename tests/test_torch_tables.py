@@ -115,10 +115,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "moonbit_flate_tpu_torch.blocks.emitters, moonbit_flate_tpu_torch.api.stream, "
         "moonbit_flate_tpu_torch.inflate.dict_decoder, "
         "moonbit_flate_tpu_torch.inflate.decoder\n"
+        "import moonbit_flate_tpu_torch.bench, moonbit_flate_tpu_torch.utils.corpus\n"
         "assert 'torch.distributed' in sys.modules\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')]\n"
+        " or m == 'moonbit_flate_tpu' or m.startswith('moonbit_flate_tpu.')"
+        " or m == 'bench']\n"
         "assert not bad, bad\n"
         "assert not any(m == 'triton' or m.startswith('triton.') for m in sys.modules)\n"
     )
