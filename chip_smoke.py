@@ -15,9 +15,7 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    ``CUDACompressor(blocks_per_segment=16)`` over a 16 MiB mixed corpus,
    checks it round-trips through zlib and that both kernels were
    launched there; then a preset-dictionary case, a halo case, and the
-   card against the plain route on a small input; times it all, and
-   ``encode_segment_ctx`` on one segment cut after each of its stages
-   (the "encode stages" line);
+   card against the plain route on a small input; times it all;
 4. decode: runs kernel A (``lanes_parse``) and kernel BC
    (``lanes_resolve``, through both entries: kernel A's step-major
    tokens and the lane-major rows) at the main path's 32 waves, the
@@ -59,32 +57,41 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
    the launch counts of every kernel on that path; a one-shard case on
    the lane route; the card against the plain route; times both encode
    paths and the decode;
-7. sharded: the multi-process layer on the one card.  Drives the sharded
-   main path, ``ShardedCompressor(blocks_per_segment=16)`` over the 16 MiB
-   corpus in an NCCL world of 1 (one wave a segment), checks that zlib
-   reads it, that it equals ``CUDACompressor``'s stream and that the walk
-   and pack kernels were launched there; times and profiles it beside
-   ``CUDACompressor``; then the card against the plain route at nb = 2,
+7. sharded: the sharded layer on the one card.  Drives its two main
+   paths over the 16 MiB corpus at nb = 16 (one wave a segment), each with
+   the walk and pack counts from 0: ``ShardedCompressor()`` from this
+   process with no process group (the local mesh of ``make_mesh()``,
+   every visible card), and ``ShardedCompressor`` in an NCCL world of 1;
+   checks that zlib reads each, that each equals ``CUDACompressor``'s
+   stream and that both kernels were launched there; a local mesh of four
+   shards a wave on the card (``make_mesh(["cuda:0"] * 4)``) must give the
+   same bytes; times and profiles both paths beside ``CUDACompressor``;
+   then the card against the plain route at nb = 2,
    halo with a preset dictionary, the retry of a wave past a tight
    ``word_cap``, and ``compress_with_manifest`` through the mesh against
    the one-card batched form; spawns a gloo world of 2 ranks that share
    the card (not a multi-GPU run) and holds both ranks' streams against
    the world of 1; and round-trips the one-shot ``compress`` /
-   ``decompress`` of the 'cuda', 'native' and 'python' backends;
+   ``decompress`` of the 'cuda', 'native', 'python' and default ('auto')
+   backends, the default's bytes equal to 'native''s;
 8. bench: the port's bench (``moonbit_flate_tpu_torch/bench.py``) in this
    process; prints its JSON line and the launch counts of its run, and
    fails unless the line holds no error, a positive value and the
    chip-independent fields of the JAX bench's line (``BENCH_r05.json``),
    and kernels a-f launched there, the batched pack never;
-9. prints a JSON line of all kernels and, last, the device line.
+9. encode stages: ``encode_segment_ctx`` on one segment cut after each of
+   its stages (the "encode stages" line), last, so that no timed path
+   runs after it;
+10. prints a JSON line of all kernels and, last, the device line.
 
 ``python3 chip_smoke.py --cards N`` needs N cards and runs only what
-exists across cards: an NCCL world of N ranks, one card each (rank r on
-``cuda:r`` through ``LOCAL_RANK``), whose streams must all equal
-``CUDACompressor``'s on card 0; and, in the main process, every kernel
-on the last card while card 0 stays current (the manifest encode and
-both decode routes).  It prints no kernel line; its last line is the
-device line.
+exists across cards: a local mesh over the N cards from this process
+(one shard after another, launch counts from 0, timed) and an NCCL world
+of N ranks, one card each (rank r on ``cuda:r`` through ``LOCAL_RANK``,
+timed), whose streams must all equal ``CUDACompressor``'s on card 0;
+and, in the main process, every kernel on the last card while card 0
+stays current (the manifest encode and both decode routes).  It prints
+no kernel line; its last line is the device line.
 
 Every phase raises on failure.  Without a CUDA device it exits non-zero
 before printing any result.  Imports nothing of JAX.
@@ -219,14 +226,16 @@ STAGE_LABELS = {1: "match find (sorts + lag tables)", 2: "greedy walk (walk.cu)"
                 None: "FULL (incl. pack)"}
 
 
-def encode_stages(dev, staged, nb, reps=5):
-    """``encode_segment_ctx`` on one staged segment, cut after each stage
-    and uncut: each call timed on the host up to a sync, the median of
-    ``reps`` after a warm call, and the deltas between successive cuts.
-    A cut's checksum must repeat on every call."""
+def encode_stages_phase(dev, nb=16, reps=5):
+    """``encode_segment_ctx`` on the corpus's first segment, cut after each
+    stage and uncut: each call timed on the host up to a sync, the median
+    of ``reps`` after a warm call, and the deltas between successive cuts.
+    A cut's checksum must repeat on every call.  The last phase: no timed
+    path runs after these calls."""
+    from moonbit_flate_tpu_torch.api.cuda import stage_segment
     from moonbit_flate_tpu_torch.ops import pipeline
 
-    buf, n, ctx = staged
+    buf, n, ctx = stage_segment(b"", make_corpus()[:nb * pipeline.BLOCK], nb)
     data = torch.from_numpy(buf).to(dev)
     med = {}
     for cut in STAGE_LABELS:
@@ -249,6 +258,7 @@ def encode_stages(dev, staged, nb, reps=5):
     print(f"encode stages (ms, median of {reps}; nb = {nb}, one segment of {n - ctx} "
           f"bytes; the delta to the cut before in brackets): " + "; ".join(parts),
           flush=True)
+    return []
 
 
 def encode_phase(dev):
@@ -381,7 +391,6 @@ def encode_phase(dev):
           flush=True)
 
     profile_main_path("encode", lambda: comp.compress(corpus))
-    encode_stages(dev, staged[0], nb)
 
     B = data.shape[0]
     walk_ms = cuda_ms(lambda: walk.commit_walk(*walk_args), 5)
@@ -776,7 +785,7 @@ def scalar_decode_phase(dev):
           f"{first_s:.3f} s, launches {launches}", flush=True)
 
     t0 = time.time()
-    own = [compress(s) for s in segs[:8]]
+    own = [compress(s, backend="cuda") for s in segs[:8]]
     if decompress_segments(own, sizes[:8]) != segs[:8]:
         raise AssertionError("the port's own streams do not decode to their segments")
     for kw in ({}, {"parse_on_device": True}):
@@ -1093,9 +1102,10 @@ WORLD_TIMEOUT_S = 300
 def _world_rank(backend, rank, world, store, out_path):
     """One rank of a spawned world: the sharded compress of the 16 MiB
     corpus, its stream written to out_path (an error's traceback in its
-    place).  Gloo ranks share the current card; an NCCL rank takes card
-    ``rank`` through ``LOCAL_RANK``, as a launcher would set it, and
-    checks that make_mesh made that card current."""
+    place), then a second call after a barrier, its seconds written to
+    out_path + ".s".  Gloo ranks share the current card; an NCCL rank
+    takes card ``rank`` through ``LOCAL_RANK``, as a launcher would set
+    it, and checks that make_mesh made that card current."""
     import datetime
     import os
     import traceback
@@ -1115,7 +1125,16 @@ def _world_rank(backend, rank, world, store, out_path):
                     != (rank, rank):
                 raise AssertionError(f"rank {rank} runs on {mesh.device}, current "
                                      f"card {torch.cuda.current_device()}")
-            out = ShardedCompressor(mesh, blocks_per_segment=16).compress(make_corpus())
+            sc = ShardedCompressor(mesh, blocks_per_segment=16)
+            out = sc.compress(make_corpus())
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if sc.compress(make_corpus()) != out:
+                raise AssertionError("a second compress differs from the first")
+            torch.cuda.synchronize()
+            with open(out_path + ".s", "w") as f:
+                f.write(repr(time.time() - t0))
         finally:
             dist.destroy_process_group()
     except Exception:
@@ -1126,7 +1145,8 @@ def _world_rank(backend, rank, world, store, out_path):
 
 def spawn_world(tmp, backend, world):
     """Spawn a world of ``world`` ranks over ``backend``; every rank's
-    stream.  Every rank is stopped, at the latest after WORLD_TIMEOUT_S."""
+    stream and the slowest rank's seconds for its timed call.  Every rank
+    is stopped, at the latest after WORLD_TIMEOUT_S."""
     import multiprocessing
     import os
 
@@ -1158,7 +1178,11 @@ def spawn_world(tmp, backend, world):
             outs.append(f.read())
         if outs[-1].startswith(b"error: "):
             raise AssertionError(f"a {backend} rank failed:\n{outs[-1].decode()}")
-    return outs
+    secs = []
+    for path in paths:
+        with open(path + ".s") as f:
+            secs.append(float(f.read()))
+    return outs, max(secs)
 
 
 def sharded_phase(dev):
@@ -1175,40 +1199,76 @@ def sharded_phase(dev):
     nb = 16
     corpus = make_corpus()
     segs = -(-len(corpus) // (nb * pipeline.BLOCK))
+    mb = len(corpus) / 1e6
+    one = CUDACompressor(blocks_per_segment=nb).compress(corpus)
+    if zlib.decompress(one, wbits=-15) != corpus:
+        raise AssertionError("stock zlib does not read CUDACompressor's stream")
+
+    def sharded_main_path(label, sc):
+        """One compress of the corpus with the walk and pack counts from 0,
+        checked, then one timed call; (stream, launches, first s, timed s)."""
+        walk.launches = 0
+        pack.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = sc.compress(corpus)
+        first_s = time.time() - t0
+        launches = {"walk": walk.launches, "pack": pack.launches}
+        if not all(launches.values()):
+            raise AssertionError(f"{label}: launches {launches}")
+        if zlib.decompress(out, wbits=-15) != corpus:
+            raise AssertionError(f"{label}: stock zlib does not read the stream")
+        if out != one:
+            raise AssertionError(f"{label}: the stream differs from CUDACompressor's")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        again = sc.compress(corpus)
+        torch.cuda.synchronize()
+        timed_s = time.time() - t0
+        if again != out:
+            raise AssertionError(f"{label}: a second compress differs from the first")
+        return out, launches, first_s, timed_s
+
+    def time_loop():
+        t0 = time.time()
+        CUDACompressor(blocks_per_segment=nb).compress(corpus)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    # ---- main path 1: ShardedCompressor() from one process, no group ------
+    if dist.is_initialized():
+        raise AssertionError("a process group is already initialised")
+    sc = ShardedCompressor(blocks_per_segment=nb)
+    out, launches, first_s, local_s = sharded_main_path("local mesh", sc)
+    four = ShardedCompressor(make_mesh(["cuda:0"] * 4), blocks_per_segment=nb)
+    t0 = time.time()
+    if four.compress(corpus) != out:
+        raise AssertionError("the local mesh of 4 shards a wave on one card differs")
+    torch.cuda.synchronize()
+    four_s = time.time() - t0
+    loop_s = time_loop()
+    print(f"sharded main path, local mesh ShardedCompressor() (no process group, "
+          f"{len(sc.mesh.devices)} card(s), {sc.mesh.device}): {len(corpus)} -> "
+          f"{len(out)} bytes in {segs} waves, zlib reads it, equal to CUDACompressor's; "
+          f"launches {launches} (walk {launches['walk'] / segs:.1f} and pack "
+          f"{launches['pack'] / segs:.1f} a wave); first call {first_s:.3f} s; "
+          f"{local_s:.3f} s = {mb / local_s:.2f} MB/s; 4 shards a wave on cuda:0 "
+          f"(make_mesh(['cuda:0'] * 4), {-(-segs // 4)} waves) the same bytes in "
+          f"{four_s:.3f} s = {mb / four_s:.2f} MB/s; CUDACompressor {loop_s:.3f} s = "
+          f"{mb / loop_s:.2f} MB/s, same corpus", flush=True)
+    profile_main_path("sharded encode (local mesh)", lambda: sc.compress(corpus),
+                      warm=lambda: sc.compress(corpus[:2 * nb * pipeline.BLOCK]))
+
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- main path: an NCCL world of 1, counts from 0, one compress ------
+        # ---- main path 2: an NCCL world of 1 -----------------------------------
         dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
                                 rank=0, world_size=1,
                                 timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
         try:
             mesh = make_mesh()
             sc = ShardedCompressor(mesh, blocks_per_segment=nb)
-            walk.launches = 0
-            pack.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = sc.compress(corpus)
-            first_s = time.time() - t0
-            launches = {"walk": walk.launches, "pack": pack.launches}
-            if not all(launches.values()):
-                raise AssertionError(f"sharded main path launches {launches}")
-            if zlib.decompress(out, wbits=-15) != corpus:
-                raise AssertionError("stock zlib does not read the sharded stream")
-            one = CUDACompressor(blocks_per_segment=nb).compress(corpus)
-            if out != one:
-                raise AssertionError("the sharded stream differs from CUDACompressor's")
-            torch.cuda.synchronize()
-            t0 = time.time()
-            again = sc.compress(corpus)
-            torch.cuda.synchronize()
-            sharded_s = time.time() - t0
-            if again != out:
-                raise AssertionError("a second sharded compress differs from the first")
-            t0 = time.time()
-            CUDACompressor(blocks_per_segment=nb).compress(corpus)
-            torch.cuda.synchronize()
-            loop_s = time.time() - t0
-            mb = len(corpus) / 1e6
+            out, launches, first_s, sharded_s = sharded_main_path("NCCL world", sc)
+            loop_s = time_loop()
             print(f"sharded main path ({mesh.backend} world of {mesh.size}, {mesh.device}): "
                   f"{len(corpus)} -> {len(out)} bytes in {segs} waves, zlib reads it, "
                   f"equal to CUDACompressor's; launches {launches} "
@@ -1257,23 +1317,25 @@ def sharded_phase(dev):
 
         # ---- a gloo world of 2 ranks sharing the card: not a multi-GPU run --
         t0 = time.time()
-        outs = spawn_world(tmp, "gloo", GLOO_WORLD)
+        outs, world_s = spawn_world(tmp, "gloo", GLOO_WORLD)
         if any(o != out for o in outs):
             raise AssertionError("the gloo world's streams differ from the world of 1")
         print(f"gloo world of {GLOO_WORLD} ranks on one card: every rank's stream "
-              f"equals the world of 1 ({time.time() - t0:.1f} s with start-up)",
-              flush=True)
+              f"equals the world of 1 ({time.time() - t0:.1f} s with start-up; "
+              f"a timed call {world_s:.3f} s = {mb / world_s:.2f} MB/s)", flush=True)
 
     # ---- the one-shot backends ---------------------------------------------
     small = corpus[(7 << 20): (7 << 20) + (256 << 10)]
-    sizes = {}
-    for backend in ("cuda", "native", "python"):
+    sizes, streams = {}, {}
+    for backend in ("cuda", "native", "python", "auto"):
         c = compress(small, backend=backend)
         if decompress(c, backend=backend) != small or zlib.decompress(c, -15) != small:
             raise AssertionError(f"one-shot backend {backend!r} does not round-trip")
-        sizes[backend] = len(c)
+        sizes[backend], streams[backend] = len(c), c
+    if streams["auto"] != streams["native"] or compress(small) != streams["native"]:
+        raise AssertionError("the default one-shot backend differs from 'native'")
     print(f"one-shot compress / decompress round-trip for {len(small)} bytes: "
-          f"{sizes}", flush=True)
+          f"{sizes}; the default ('auto') equals 'native'", flush=True)
     return []
 
 
@@ -1332,13 +1394,15 @@ def bench_phase(dev):
 
 
 def multi_card_phase(cards):
-    """An NCCL world of ``cards`` ranks, a card each, against
+    """A local mesh over ``cards`` cards from this process, then an NCCL
+    world of ``cards`` ranks, a card each, both against
     ``CUDACompressor`` on card 0; then every kernel on the last card
     while card 0 stays current."""
     import tempfile
 
-    from moonbit_flate_tpu_torch import (CUDACompressor, compress_with_manifest,
-                                         decompress_shards, decompress_with_manifest)
+    from moonbit_flate_tpu_torch import (CUDACompressor, ShardedCompressor,
+                                         compress_with_manifest, decompress_shards,
+                                         decompress_with_manifest, make_mesh)
     from moonbit_flate_tpu_torch.ops import lanes_inflate as LI
     from moonbit_flate_tpu_torch.ops import lanes_resolve as LR
     from moonbit_flate_tpu_torch.ops import pack, walk
@@ -1352,14 +1416,39 @@ def multi_card_phase(cards):
     ref = CUDACompressor(blocks_per_segment=16).compress(corpus)
     if zlib.decompress(ref, wbits=-15) != corpus:
         raise AssertionError("stock zlib does not read CUDACompressor's stream")
+    t0 = time.time()
+    CUDACompressor(blocks_per_segment=16).compress(corpus)
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+
+    # a local mesh over the cards: one process, one shard after another
+    sc = ShardedCompressor(make_mesh([f"cuda:{i}" for i in range(cards)]), 16)
+    walk.launches = 0
+    pack.launches = 0
+    if sc.compress(corpus) != ref:
+        raise AssertionError("the local mesh's stream differs from CUDACompressor's")
+    launches = {"walk": walk.launches, "pack": pack.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"local mesh over {cards} cards: launches {launches}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sc.compress(corpus)
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    local_s = time.time() - t0
+    mb = len(corpus) / 1e6
+    print(f"local mesh over {cards} cards from one process: equal to "
+          f"CUDACompressor's on card 0, launches {launches}; {local_s:.3f} s = "
+          f"{mb / local_s:.2f} MB/s beside CUDACompressor on card 0 {loop_s:.3f} s "
+          f"= {mb / loop_s:.2f} MB/s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        outs = spawn_world(tmp, "nccl", cards)
+        outs, world_s = spawn_world(tmp, "nccl", cards)
         if any(o != ref for o in outs):
             raise AssertionError("an NCCL rank's stream differs from CUDACompressor's")
     print(f"nccl world of {cards} ranks, a card each: every rank's stream equals "
-          f"CUDACompressor's on card 0 ({time.time() - t0:.1f} s with start-up)",
-          flush=True)
+          f"CUDACompressor's on card 0 ({time.time() - t0:.1f} s with start-up; "
+          f"a timed call {world_s:.3f} s = {mb / world_s:.2f} MB/s)", flush=True)
 
     # every kernel on a card that is not the current one
     dev = torch.device("cuda", cards - 1)
@@ -1418,7 +1507,7 @@ def main():
 
     kernels = []
     for phase in (encode_phase, decode_phase, scalar_decode_phase, manifest_phase,
-                  sharded_phase, bench_phase):
+                  sharded_phase, bench_phase, encode_stages_phase):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         kernels += phase(dev)

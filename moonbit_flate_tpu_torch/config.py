@@ -22,7 +22,9 @@ class CodecConfig:
 
     blocks_per_segment: DEFLATE blocks (65535 B) per segment — the
         geometry of the device pipeline.
-    backend: 'auto' | 'native' | 'python' | 'cuda' (one-shot API).
+    backend: 'auto' | 'native' | 'python' | 'cuda' (one-shot API;
+        'auto' is 'native' where the C codec builds, else 'python', as
+        in the JAX package; 'cuda' is the device pipeline).
     halo: feed each segment/shard the previous 32 KB as context
         (recovers cross-boundary matches; SURVEY §5.7).
     mesh_axis: name of the data-parallel mesh axis (parallel/sharded).

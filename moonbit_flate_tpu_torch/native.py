@@ -2,7 +2,8 @@
 source beside the packages; read here, never edited): the token scanner
 ``mf_scan_tokens`` that the scalar decode needs, and the one-shot
 ``compress`` / ``decompress`` of the ``'native'`` backend over
-``mf_deflate_fast`` and ``mf_inflate_dict``.
+``mf_deflate_fast`` and ``mf_inflate_dict``; ``available()`` tells the
+one-shot ``'auto'`` backend whether that library builds here.
 
 The port's counterpart of ``moonbit_flate_tpu/native.py``.  The library is
 built with the host C compiler at first use into
@@ -10,7 +11,8 @@ built with the host C compiler at first use into
 flags like the CUDA kernels' libraries, so it never touches
 ``native/libflate_native.so`` (the JAX package's loader rebuilds that
 file, and two writers would race when tests run in several processes).
-A build that fails raises; there is no fallback.
+A build that fails raises; there is no fallback in this module: the
+caller that has one (``'auto'``) asks ``available()`` first.
 """
 
 from __future__ import annotations
@@ -81,6 +83,17 @@ def _load():
                 ctypes.c_char_p, ctypes.c_long]
             _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """True if the library builds and loads here, as
+    ``moonbit_flate_tpu.native.available``.  The one-shot ``'auto'``
+    backend takes the pure-Python codec where this is False."""
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
 
 
 def scanner():

@@ -1,7 +1,8 @@
 """Port parity of ``CodecConfig`` (``moonbit_flate_tpu_torch/config.py``)
 against ``moonbit_flate_tpu/config.py``: the same frozen fields, defaults
 and checks, the backend names with 'cuda' in place of 'tpu', and the
-factories of the port's compressors."""
+factories of the port's compressors (the sharded one on a process mesh
+and on a local mesh)."""
 
 import dataclasses
 
@@ -68,7 +69,8 @@ def test_sharded_compressor_factory(tmp_path):
     import torch.distributed as dist
 
     cfg = TCFG.CodecConfig(blocks_per_segment=1, halo=True)
-    with pytest.raises(RuntimeError, match="not initialised"):
+    # no group and no card: the default mesh, every card, has none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cfg.sharded_compressor()
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
                             rank=0, world_size=1)
@@ -80,3 +82,11 @@ def test_sharded_compressor_factory(tmp_path):
         assert sc.compress(data) == cfg.cuda_compressor(device="cpu").compress(data)
     finally:
         dist.destroy_process_group()
+
+
+def test_sharded_compressor_factory_on_a_local_mesh():
+    cfg = TCFG.CodecConfig(blocks_per_segment=1, halo=True)
+    sc = cfg.sharded_compressor(make_mesh(["cpu", "cpu"]))
+    assert (sc.nb, sc.halo, sc.n_dev, sc.mesh.device.type) == (1, True, 2, "cpu")
+    data = b"config factory payload " * 5000
+    assert sc.compress(data) == cfg.cuda_compressor(device="cpu").compress(data)

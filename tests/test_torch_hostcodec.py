@@ -4,7 +4,8 @@ byte (tolerance 0), on the inputs of tests/test_{bitio,huffman,dict,
 dict_decoder,formats,inflate_errors,native,roundtrip,fuzz,utf8}.py, and the
 package's one-shot ``compress`` / ``decompress`` for every backend against
 the JAX package's function for the matching backend ('cuda' against
-'tpu', on the CPU route).  An error is compared by its type's name, its
+'tpu', on the CPU route), and with the default backend against the JAX
+package's default.  An error is compared by its type's name, its
 offset and its message.
 """
 
@@ -43,6 +44,7 @@ from moonbit_flate_tpu_torch.lz77 import reference_fast as TL
 from moonbit_flate_tpu_torch.utils import bits as TB
 from moonbit_flate_tpu_torch.utils import errors as TE
 from moonbit_flate_tpu_torch.utils import utf8 as TU
+from moonbit_flate_tpu_torch.utils.corpus import make_corpus
 
 # one intra-op thread: the suite runs several worker processes at once,
 # and PyTorch's spinning CPU threads would contend with each other
@@ -624,15 +626,70 @@ def test_one_shot_host_backends_equal_the_original(backend, case):
     assert T.decompress(c, backend=backend) == (d[-32768:] + data)
 
 
-@pytest.mark.parametrize("case,backend", [("text", "auto"), ("dictionary", "cuda"),
+@pytest.mark.parametrize("case,backend", [("text", "cuda"), ("dictionary", "cuda"),
                                           ("empty", "cuda")])
 def test_one_shot_cuda_backend_equals_tpu(case, backend):
-    """'auto' is 'cuda' in the port: the 'tpu' backend's bytes."""
+    """'cuda' in the port gives the 'tpu' backend's bytes."""
     data, dictionary = _ONE_SHOT[case]
     c = T.compress(data, dictionary, backend=backend, device="cpu")
     assert c == J.compress(data, dictionary, backend="tpu")
     assert T.decompress(c, dictionary or b"", backend=backend, device="cpu") == \
         J.decompress(c, dictionary or b"", backend="tpu") == data
+
+
+def _default_cases():
+    corpus = make_corpus(100_000, 2)
+    return dict(_ONE_SHOT, abc=(b"abcabcabcabc" * 50, None),
+                corpus_dictionary=(corpus, make_corpus(51_200, 3)[50_000:]))
+
+
+@pytest.mark.parametrize("case", sorted(_default_cases()))
+def test_one_shot_default_backend_equals_the_original(case):
+    """No backend named: the JAX package's bytes ('auto' is 'native' in
+    both, the writer's prepend of a dictionary), no card needed."""
+    data, dictionary = _default_cases()[case]
+    c = T.compress(data, dictionary)
+    assert c == J.compress(data, dictionary)
+    assert zlib.decompress(c, wbits=-15) == (dictionary or b"")[-32768:] + data
+    assert T.decompress(c) == J.decompress(c)
+    d = dictionary or b""
+    z = zlib.compressobj(6, zlib.DEFLATED, -15, zdict=d) if d else \
+        zlib.compressobj(6, zlib.DEFLATED, -15)
+    s = z.compress(data) + z.flush()
+    assert T.decompress(s, d) == J.decompress(s, d) == data
+    for s in (b"\x01\x05\x00\x00\x00hello", c[:40]):
+        got, want = _outcome(T.decompress, s), _outcome(J.decompress, s)
+        assert got[:2] == want[:2]
+
+
+def test_native_available_and_auto_without_it(monkeypatch):
+    assert TN.available() is JN.available() is True
+    data = _ONE_SHOT["dictionary"][0]
+    dictionary = _ONE_SHOT["dictionary"][1]
+
+    def no_compiler():
+        raise RuntimeError("no C compiler: the host token scanner cannot be built")
+
+    monkeypatch.setattr(TN, "_load", no_compiler)
+    assert TN.available() is False
+    # 'auto' takes the pure-Python codec, same bytes; 'native' still raises
+    c = T.compress(data, dictionary)
+    assert c == T.compress(data, dictionary, backend="python") == \
+        J.compress(data, dictionary, backend="python")
+    assert T.decompress(c) == dictionary + data
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        T.compress(data, backend="native")
+
+
+@pytest.mark.parametrize("backend", ["auto", "native", "python"])
+@pytest.mark.parametrize("fn", ["compress", "decompress"])
+def test_one_shot_host_backends_refuse_a_device(fn, backend):
+    """A call that names a device never runs on the host codec."""
+    data = b"x" if fn == "compress" else b"\x03\x00"
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="applies to backend=\"cuda\" only"):
+            getattr(T, fn)(data, backend=backend, device=device)
+    assert getattr(T, fn)(data, backend=backend) == getattr(J, fn)(data, backend=backend)
 
 
 @pytest.mark.parametrize("backend", ["native", "python", "cuda"])

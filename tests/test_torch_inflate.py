@@ -181,21 +181,21 @@ def test_decompress_equals_jax(i):
     t = _decode_cases()[i]
     for lvl in (0, 1, 6, 9):
         s = _raw(t, lvl)
-        assert mft.decompress(s, device="cpu") == JI.decompress(s) == t
+        assert mft.decompress(s, backend="cuda", device="cpu") == JI.decompress(s) == t
     s = mf_compress(t)
-    assert mft.decompress(s, device="cpu") == JI.decompress(s) == t
+    assert mft.decompress(s, backend="cuda", device="cpu") == JI.decompress(s) == t
 
 
 def test_decompress_own_encoder_output():
     data, s = _own_streams()
-    assert mft.decompress(s, device="cpu") == JI.decompress(s) == data
+    assert mft.decompress(s, backend="cuda", device="cpu") == JI.decompress(s) == data
 
 
 def test_decompress_preset_dictionary_equals_jax():
     d = b"shared dictionary content! " * 100
     s = _raw(b"shared dictionary content! and more", zdict=d)
     want = JI.decompress(s, dictionary=d)
-    assert mft.decompress(s, dictionary=d, device="cpu") == want
+    assert mft.decompress(s, dictionary=d, backend="cuda", device="cpu") == want
     assert want == b"shared dictionary content! and more"
     # a dictionary routes around the device parser, as in the JAX package
     assert TI.decompress(s, dictionary=d, parse_on_device=True, device="cpu") == want

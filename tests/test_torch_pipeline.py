@@ -123,6 +123,6 @@ def test_compressor_equals_tpu_compressor_with_halo():
 
 def test_package_compress_on_the_cpu_route():
     data = b"the quick compression of the deflate window " * 3000
-    out = port_compress(data, device="cpu")
+    out = port_compress(data, backend="cuda", device="cpu")
     assert zlib.decompress(out, wbits=-15) == data
     assert out == CUDACompressor(16, device="cpu").compress(data)

@@ -1,12 +1,16 @@
-"""Port parity of the multi-process layer (``parallel/sharded.py``):
+"""Port parity of the sharded layer (``parallel/sharded.py``):
 ``make_mesh``, ``make_sharded_encoder``, ``ShardedCompressor``,
-``compress`` and ``compress_with_manifest`` over ``torch.distributed``.
+``compress`` and ``compress_with_manifest`` on both forms of mesh: a
+local mesh, one process over a list of devices, and a process mesh over
+``torch.distributed``.
 
 Worlds of 2 and 4 CPU processes on the ``gloo`` backend are spawned once,
 in a module fixture; every rank runs every case and hands its results
-back through a file.  The parent holds them against each other, against
-the one-device ``CUDACompressor(device="cpu")``, against zlib and the
-port's own decoder, and byte for byte against the JAX package's
+back through a file.  The same fixture runs every case in this process
+on local meshes of 2 and 4 CPU devices (``make_mesh(["cpu"] * D)``).
+The tests hold the results against each other, against the one-device
+``CUDACompressor(device="cpu")``, against zlib and the port's own
+decoder, and byte for byte against the JAX package's
 ``ShardedCompressor`` / sharded step over 2 and 4 of the virtual CPU
 devices of ``tests/conftest.py`` (tolerance 0: bytes).  The inputs come
 from numpy seeds.  JAX is imported inside the tests only: the spawned
@@ -41,6 +45,9 @@ GRAFT_SIZES = [1531, 0, 2048, 733]
 WORLDS = (2, 4)
 DICTIONARY = b"the quick brown fox jumps over the lazy dog | " * 50
 WORLD_TIMEOUT_S = 600
+# (mesh kind, D); a gloo world keeps the plain D as its test id
+MESHES = ([pytest.param(("gloo", w), id=str(w)) for w in WORLDS]
+          + [pytest.param(("local", w), id=f"local{w}") for w in WORLDS])
 
 
 def _payloads():
@@ -96,7 +103,8 @@ def _graft_rows(n_ranks):
 
 
 def _run_cases(mesh):
-    """Every case on this rank; the results every rank must agree on."""
+    """Every case on this mesh (on a process mesh, this rank's part); the
+    results every rank must agree on."""
     data = _payloads()
     out = {}
     for name, (key, sc_kw, kw) in CASES.items():
@@ -107,20 +115,22 @@ def _run_cases(mesh):
     out["manifest"] = (stream, man.to_dict())
     # the capped step alone: sizes stay exact, the gathered words are cut
     sc = TS.ShardedCompressor(mesh, NB, word_cap=WORD_CAP)
-    start = mesh.rank * sc.seg
-    args = sc._upload(b"", data["random"][start: start + sc.seg])
-    cut = sc._step(*args)
-    full = sc._step_full(*args)
+    shards = [sc._upload(b"", data["random"][d * sc.seg: (d + 1) * sc.seg], d)
+              for d in mesh.shards]
+    cut = sc._step(shards)
+    full = sc._step_full(shards)
     out["step_cut"] = [(t[1].tolist(), int(t[2]), t[0].numel()) for t in (cut, full)]
     if mesh.size == len(GRAFT_SIZES):
         rows, _ = _graft_rows(mesh.size)
         step = TS.make_sharded_encoder(mesh, 16)
-        buf, n, ctx = stage_segment(*rows[mesh.rank], 16)
-        row = torch.from_numpy(buf)
-        stream, sizes, total = step(row, n, ctx)
+        staged = [stage_segment(*rows[d], 16) for d in mesh.shards]
+        shards = [(torch.from_numpy(buf).to(mesh.shard_device(d)), n, ctx)
+                  for d, (buf, n, ctx) in zip(mesh.shards, staged)]
+        stream, sizes, total = step(shards)
         out["graft"] = (TS._stream_bytes(stream, total), sizes.tolist())
-        words, bits = encode_segment_ctx(row, n, ctx, 16)
-        out["graft_own_shard"] = TS._stream_bytes(words, int(bits) // 8)
+        out["graft_own_shard"] = [
+            TS._stream_bytes(words, int(bits) // 8)
+            for words, bits in (encode_segment_ctx(*shard, 16) for shard in shards)]
     return out
 
 
@@ -183,9 +193,11 @@ def _jax_results(world):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """{D: ([rank 0's results, ...], the JAX package's results)} for gloo
-    worlds of 2 and 4 processes, both spawned at once and given
-    WORLD_TIMEOUT_S; the JAX side is computed here while they run."""
+    """{(kind, D): ([rank 0's results, ...], the JAX package's results)}
+    for gloo worlds of 2 and 4 processes, both spawned at once and given
+    WORLD_TIMEOUT_S, and for local meshes of 2 and 4 CPU devices (one
+    process: a list of one result); the JAX side and the local meshes are
+    computed here while the worlds run."""
     ctx = multiprocessing.get_context("spawn")
     procs, dirs, jax_out = [], {}, {}
     try:
@@ -199,6 +211,8 @@ def worlds(tmp_path_factory):
         deadline = time.time() + WORLD_TIMEOUT_S
         for world in WORLDS:
             jax_out[world] = _jax_results(world)
+        results = {("local", world): ([_run_cases(mft.make_mesh(["cpu"] * world))],
+                                      jax_out[world]) for world in WORLDS}
         for p in procs:
             p.join(max(1.0, deadline - time.time()))
         assert not any(p.is_alive() for p in procs), "a gloo world timed out"
@@ -207,7 +221,6 @@ def worlds(tmp_path_factory):
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    results = {}
     for world, d in dirs.items():
         ranks = []
         for rank in range(world):
@@ -215,22 +228,22 @@ def worlds(tmp_path_factory):
                 res = pickle.load(f)
             assert "error" not in res, f"rank {rank} of {world}:\n{res['error']}"
             ranks.append(res)
-        results[world] = (ranks, jax_out[world])
+        results["gloo", world] = (ranks, jax_out[world])
     return results
 
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_every_rank_returns_the_same_results(worlds, world):
-    ranks = worlds[world][0]
+    ranks = worlds["gloo", world][0]
     shared = [{k: v for k, v in r.items() if k != "graft_own_shard"} for r in ranks]
     assert all(s == shared[0] for s in shared[1:])
     assert len(ranks) == world
 
 
-@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_stream_equals_jax_sharded_compressor(worlds, world, case):
-    ranks, jax_res = worlds[world]
+def test_stream_equals_jax_sharded_compressor(worlds, mesh, case):
+    ranks, jax_res = worlds[mesh]
     got = ranks[0][case]
     assert got == jax_res[case]
     key, _, kw = CASES[case]
@@ -238,41 +251,42 @@ def test_stream_equals_jax_sharded_compressor(worlds, world, case):
     assert d.decompress(got) + d.flush() == _payloads()[key]
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_module_compress_equals_the_compressor(worlds, world):
-    res = worlds[world][0][0]
+@pytest.mark.parametrize("mesh", MESHES)
+def test_module_compress_equals_the_compressor(worlds, mesh):
+    res = worlds[mesh][0][0]
     assert res["module_compress"] == res["halo_and_dictionary"]
 
 
-@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("case", ["roundtrip", "single_device",
                                   "uneven_and_empty_shards", "empty_input"])
-def test_sharding_does_not_change_bytes(worlds, world, case):
+def test_sharding_does_not_change_bytes(worlds, mesh, case):
     key = CASES[case][0]
     one = CUDACompressor(blocks_per_segment=NB, device="cpu")
-    assert worlds[world][0][0][case] == one.compress(_payloads()[key])
+    assert worlds[mesh][0][0][case] == one.compress(_payloads()[key])
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_halo_improves_ratio(worlds, world):
-    res = worlds[world][0][0]
+@pytest.mark.parametrize("mesh", MESHES)
+def test_halo_improves_ratio(worlds, mesh):
+    res = worlds[mesh][0][0]
     assert len(res["halo"]) < len(res["no_halo"])
     one = CUDACompressor(blocks_per_segment=NB, halo=True, device="cpu")
     assert res["halo"] == one.compress(_payloads()["periodic"])
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_dictionary_decodes_and_helps(worlds, world):
+@pytest.mark.parametrize("mesh", MESHES)
+def test_dictionary_decodes_and_helps(worlds, mesh):
     from moonbit_flate_tpu_torch.inflate.decoder import decompress as py_inflate
 
-    res, payload = worlds[world][0][0], _payloads()["dictionary"]
+    res, payload = worlds[mesh][0][0], _payloads()["dictionary"]
     assert py_inflate(res["dictionary"], dictionary=DICTIONARY) == payload
     assert len(res["dictionary"]) < len(res["no_dictionary"])
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_word_cap_retry_gives_the_full_cap_bytes(worlds, world):
-    res = worlds[world][0][0]
+@pytest.mark.parametrize("mesh", MESHES)
+def test_word_cap_retry_gives_the_full_cap_bytes(worlds, mesh):
+    world = mesh[1]
+    res = worlds[mesh][0][0]
     assert res["word_cap_retry"] == res["word_cap_full"]
     (cut_sizes, cut_total, cut_words), (sizes, total, words) = res["step_cut"]
     # sizes and total exact under the cap; the stream buffer is cut to it
@@ -281,9 +295,9 @@ def test_word_cap_retry_gives_the_full_cap_bytes(worlds, world):
     assert cut_words == world * WORD_CAP + 1 < words
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_manifest_with_a_mesh(worlds, world):
-    ranks, jax_res = worlds[world]
+@pytest.mark.parametrize("mesh", MESHES)
+def test_manifest_with_a_mesh(worlds, mesh):
+    ranks, jax_res = worlds[mesh]
     stream, man = ranks[0]["manifest"]
     assert (stream, man) == jax_res["manifest"]
     payload = _payloads()["manifest"]
@@ -296,15 +310,24 @@ def test_manifest_with_a_mesh(worlds, world):
     assert got == payload
 
 
-def test_graft_step_equals_jax_and_the_shard_by_shard_encode(worlds):
-    world = len(GRAFT_SIZES)
-    ranks, jax_res = worlds[world]
+def _check_graft(ranks, jax_res):
+    """The graft step's stream and sizes against the JAX step's and the
+    shards encoded one by one (each rank's, or the local mesh's all)."""
     stream, sizes = ranks[0]["graft"]
     assert (stream, sizes) == jax_res["graft"]
-    assert stream == b"".join(r["graft_own_shard"] for r in ranks)
-    assert sizes == [len(r["graft_own_shard"]) for r in ranks]
-    full = _graft_rows(world)[1]
+    own = [s for r in ranks for s in r["graft_own_shard"]]
+    assert stream == b"".join(own)
+    assert sizes == [len(s) for s in own]
+    full = _graft_rows(len(GRAFT_SIZES))[1]
     assert zlib.decompress(stream + TS.FINAL_EMPTY_BLOCK, wbits=-15) == full
+
+
+def test_graft_step_equals_jax_and_the_shard_by_shard_encode(worlds):
+    _check_graft(*worlds["gloo", len(GRAFT_SIZES)])
+
+
+def test_graft_step_on_a_local_mesh(worlds):
+    _check_graft(*worlds["local", len(GRAFT_SIZES)])
 
 
 def test_make_mesh_raises_without_a_process_group():
@@ -313,7 +336,8 @@ def test_make_mesh_raises_without_a_process_group():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="not initialised"):
         mft.make_mesh(device="cpu")
-    with pytest.raises(RuntimeError, match="not initialised"):
+    # without a group the default mesh is every card, and there is none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         mft.ShardedCompressor(blocks_per_segment=NB)
 
 
@@ -364,3 +388,68 @@ def test_compress_with_manifest_takes_a_mesh_or_a_device(tmp_path):
         assert mft.ShardedCompressor(mesh, NB).compress(payload) == stream
     finally:
         dist.destroy_process_group()
+
+
+def test_make_mesh_without_a_group_takes_every_card(monkeypatch):
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mft.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mft.make_mesh(["cuda:0", "cuda:0"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    mesh = mft.make_mesh()
+    assert isinstance(mesh, TS.LocalMesh)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(3))
+    assert (mesh.size, mesh.device, list(mesh.shards)) == \
+        (3, torch.device("cuda", 0), [0, 1, 2])
+
+
+def test_make_mesh_forms_of_a_local_mesh():
+    for devices in (["cpu", "cpu"], ("cpu", torch.device("cpu"))):
+        mesh = mft.make_mesh(devices)
+        assert mesh == TS.LocalMesh((torch.device("cpu"),) * 2)
+        assert [mesh.shard_device(d) for d in mesh.shards] == list(mesh.devices)
+    with pytest.raises(ValueError, match="at least one device"):
+        mft.make_mesh([])
+    with pytest.raises(ValueError, match="not both"):
+        mft.make_mesh(["cpu"], device="cpu")
+
+
+@pytest.mark.parametrize("key", ["mixed", "text", "empty", "random"])
+def test_local_mesh_of_one_device_equals_cuda_compressor(key):
+    data = _payloads()[key]
+    one = CUDACompressor(blocks_per_segment=NB, device="cpu").compress(data)
+    assert mft.ShardedCompressor(mft.make_mesh(["cpu"]), NB).compress(data) == one
+    assert TS.compress(data, mft.make_mesh(["cpu"]), NB) == one
+
+
+def test_local_mesh_runs_each_shard_with_its_card_current(monkeypatch):
+    current = []
+
+    class Device:  # stands for torch.cuda.device: records the current card
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            current.append(self.dev)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    devs = tuple(torch.device("cuda", i) for i in (2, 0, 1))
+    got = TS.LocalMesh(devs).run(lambda d: (d, list(current)), [0, 1, 2])
+    assert got == [(d, [dev]) for d, dev in enumerate(devs)]
+    assert current == []
+    assert TS.LocalMesh((torch.device("cpu"),) * 2).run(
+        lambda d: (d, list(current)), [0, 1]) == [(0, []), (1, [])]
+
+
+def test_local_mesh_of_eight_devices_equals_cuda_compressor():
+    """Eight shards a wave, the last wave short: CUDACompressor's stream."""
+    data = _payloads()["mixed"][: 8 * BLOCK + 777]
+    one = CUDACompressor(blocks_per_segment=NB, device="cpu").compress(data)
+    assert mft.ShardedCompressor(mft.make_mesh(["cpu"] * 8), NB).compress(data) == one

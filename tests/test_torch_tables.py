@@ -142,14 +142,13 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch, tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CUDACompressor()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        compress(b"abc")
+    # the one-shot default is the host codec, as in the JAX package
+    assert decompress(compress(b"abc")) == b"abc"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decompress_shards([b"\x03\x00"], [0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decompress_segments([b"\x03\x00"], [0])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        decompress(b"\x03\x00")
+    assert decompress(b"\x03\x00") == b""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compress_with_manifest(b"abc")
     for payload_size in (1, 5000):         # the lane route, the scalar route
@@ -161,9 +160,12 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch, tmp_path)
     for backend in ("native", "python"):            # the host backends need no card
         assert decompress(compress(b"abc", backend=backend), backend=backend) == b"abc"
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        decompress(b"\x03\x00")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
         decompress(b"\x03\x00", backend="cuda")
+    # no process group: the default mesh is every card, and there is none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedCompressor()
     # a process group without a device: make_mesh asks for the card
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
                             rank=0, world_size=1)
